@@ -63,7 +63,7 @@ class DecInfo:
 
 
 class H264Decoder:
-    """Instance API: the TPU-native H264SwDec equivalent."""
+    """Instance API: the H264SwDec equivalent."""
 
     API_VERSION = (2, 3)   # mirrors H264SwDecGetAPIVersion (v2.3)
 
@@ -84,8 +84,8 @@ class H264Decoder:
         (h264bsd_byte_stream.c:162-166), so its callers must feed whole
         NALs; this mode lifts that restriction."""
         if parallel_slices is None:
-            # tpu decode: overlap host slice parsing with device work
-            parallel_slices = 8 if backend == "tpu" else 0
+            # device decode: overlap host slice parsing with device work
+            parallel_slices = 8 if backend == "device" else 0
         self._core = _Core(no_reordering=no_output_reordering,
                            backend=backend,
                            parallel_slices=parallel_slices)

@@ -1,7 +1,7 @@
 """Bitstream primitives: Annex-B NAL extraction, RBSP unescaping, and a
 big-endian bit reader with Exp-Golomb decode.
 
-TPU-native counterpart of the reference L0a layer
+Counterpart of the reference L0a layer
 (/root/reference/Decoder/src/h264bsd_byte_stream.c:80 h264bsdExtractNalUnit,
 h264bsd_stream.c:72 h264bsdGetBits, h264bsd_vlc.c:103
 h264bsdDecodeExpGolombUnsigned). This stage is host-side by design: the

@@ -6,7 +6,7 @@ DetermineNc :807; MV prediction: h264bsd_inter_prediction.c:499-917
 (MvPrediction16x16/16x8/8x16/8x8, GetInterNeighbour :968,
 GetPredictionMv :1004, MedianFilter :925).
 
-Design note (TPU-first): this host stage resolves every sequential
+Design note (device-first): this host stage resolves every sequential
 dependency of the bitstream — CAVLC nC contexts, intra-mode prediction,
 and motion-vector median prediction — so the device kernels receive fully
 materialized per-MB tensors (final modes, final quarter-pel MVs, scan-order

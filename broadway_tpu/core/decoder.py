@@ -5,7 +5,7 @@ Reference: h264bsd_decoder.c:162 h264bsdDecode, h264bsd_storage.c
 (h264bsdStoreSeqParamSet :128, StorePicParamSet :211, ActivateParamSets
 :298, CheckAccessUnitBoundary :632).
 
-TPU-first architecture (SURVEY.md §7): this host layer drives
+Architecture (SURVEY.md §7): this host layer drives
   Stage A  bitstream front-end  -> dense per-MB tensors (bitstream/)
   Stage B  pixel backend        -> whole-picture reconstruction (ops/)
   Stage C  frame state          -> DPB / POC / output ordering (core/)
@@ -65,8 +65,9 @@ class _AubState:
 
 
 class Decoder:
-    """Single-stream decode engine (NumPy backend; the jitted TPU backend
-    plugs in via `backend`)."""
+    """Single-stream decode engine. backend="cpu": NumPy reconstruction
+    (the golden-validated reference); backend="device": the jitted
+    pipeline of core/recon_tpu.py on the default JAX device."""
 
     def __init__(self, no_reordering: bool = False,
                  backend: str = "cpu", frontend: str = "auto",
@@ -76,7 +77,7 @@ class Decoder:
                  async_pump: bool = None) -> None:
         # frontend: "auto" (native C++ if built), "native", "python"
         # parallel_slices: >1 = parse a picture's slices concurrently on
-        # a thread pool (the TPU-host analogue of Broadway's sliceMode
+        # a thread pool (the host analogue of Broadway's sliceMode
         # multi-worker CAVLC, Decoder.js:268-341; the native parser
         # releases the GIL). Slice parsing is deferred to the picture
         # boundary, like the reference's AU-boundary end-of-pic test.
@@ -103,26 +104,21 @@ class Decoder:
         # (recon_tpu.decode_pictures_packed_group) — amortizes
         # per-execution dispatch overhead; outputs become lazy frames
         # that force the group on first pixel access. Default OFF:
-        # measured on the v5e, per-picture dispatch already overlaps
-        # host parse/pack with device compute, and waiting to batch G
-        # uploads stalls the device (~30 fps ungrouped vs ~25 at G=4);
-        # grouping pays off only when per-execution latency dominates
-        # (very high-latency control links). BW_GROUP env overrides.
+        # per-picture dispatch already overlaps host parse/pack with
+        # device compute, and waiting to batch G uploads stalls the
+        # device. BW_GROUP env overrides.
         if group_frames is None:
             group_frames = int(_os.environ.get("BW_GROUP", "0")) \
-                if backend == "tpu" else 0
+                if backend == "device" else 0
         self.group_frames = group_frames
         # async_pump: run upload + jit dispatch for each picture on a
-        # dedicated worker thread (in submission order). Measured on
-        # this rig, a host->device upload BLOCKS until all queued
-        # device compute completes, so issuing it from the feed thread
-        # serializes host parse with device decode (dense stream: 9
-        # fps). On the worker the block overlaps the feed thread's
+        # dedicated worker thread (in submission order), so a blocking
+        # host->device upload or dispatch overlaps the feed thread's
         # parse of the next picture — the reference's worker decode
         # pump (Player.js:140-185) on the host->device axis. Outputs
         # are lazy frames forced on first pixel access.
         if async_pump is None:
-            async_pump = backend == "tpu" \
+            async_pump = backend == "device" \
                 and not _os.environ.get("BW_NO_ASYNC") \
                 and group_frames <= 1
         self.async_pump = async_pump
@@ -142,8 +138,10 @@ class Decoder:
         self.pps: Optional[Pps] = None
         self.no_reordering = no_reordering
         self.backend = backend
-        if backend == "tpu":
-            # first 1080p compile is minutes; make it once per machine
+        if backend not in ("cpu", "device"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if backend == "device":
+            # first 1080p compile is slow; make it once per machine
             from ..utils.cache import ensure_compile_cache
             ensure_compile_cache()
         self.dpb: Optional[Dpb] = None
@@ -490,8 +488,8 @@ class Decoder:
                 frame, skipped = None, True
         if frame is not None or skipped:
             pass
-        elif self.backend == "tpu":
-            frame = self._reconstruct_tpu(pic)
+        elif self.backend == "device":
+            frame = self._reconstruct_device(pic)
         else:
             ref_frames = {p.slot: p.frame for p in self.dpb.buffer
                           if p.frame is not None}
@@ -593,7 +591,7 @@ class Decoder:
         from . import packed as PK
         from . import recon_tpu as RT
 
-        lay, ci, co, mc, wf, steps = pend[0]["cfg"]
+        lay, ci, co, steps = pend[0]["cfg"]
         G = len(pend)
         if G == 1:
             p = pend[0]
@@ -602,7 +600,7 @@ class Decoder:
                     jax.device_put(p["buf"]), self._stack_y,
                     self._stack_c, p["slot"], steps, lay=lay,
                     bk=p["bk"], constrained_intra=ci,
-                    chroma_qp_offset=co, mc=mc, wf=wf)
+                    chroma_qp_offset=co)
             p["frame"]._set(y, cb, cr, yuv)
             return
         BK = tuple(max(p["bk"][j] for p in pend) for j in range(3))
@@ -613,8 +611,7 @@ class Decoder:
             RT.decode_pictures_packed_group(
                 jax.device_put(bufs), self._stack_y, self._stack_c,
                 jax.device_put(slots), steps, lay=lay, bk=BK,
-                constrained_intra=ci, chroma_qp_offset=co, mc=mc,
-                wf=wf, group=G)
+                constrained_intra=ci, chroma_qp_offset=co, group=G)
         for g, p in enumerate(pend):
             p["frame"]._set(ys[g], cbs[g], crs[g], yuvs[g])
 
@@ -644,7 +641,7 @@ class Decoder:
         conceal_picture(pic, frame, stype, ref0,
                         self.intra_conceal_from_ref)
         deblock_mod.filter_picture(frame, pic, pps.chroma_qp_index_offset)
-        if self.backend == "tpu":
+        if self.backend == "device":
             import jax.numpy as jnp
 
             from . import recon_tpu as RT
@@ -656,9 +653,9 @@ class Decoder:
                 self._stack_y, self._stack_c = RT.update_stack_slot(
                     self._stack_y, self._stack_c,
                     self.dpb.current.slot, y, cb, cr)
-                frame = RT.TpuFrame(y, cb, cr, pad=False)
+                frame = RT.DeviceFrame(y, cb, cr, pad=False)
             else:
-                frame = RT.TpuFrame(y, cb, cr)
+                frame = RT.DeviceFrame(y, cb, cr)
         return frame
 
     def _ensure_stacks(self) -> None:
@@ -668,7 +665,7 @@ class Decoder:
         import jax.numpy as jnp
 
         from . import recon_tpu as RT
-        from ..ops.tpu import mc_pallas as K_mcp
+        from ..ops.tpu import inter as K_mc
 
         sps = self.sps
         R = self.dpb.dpb_size + 1
@@ -676,8 +673,8 @@ class Decoder:
         if getattr(self, "_dstack_key", None) == key:
             return
         self._flush_group()   # old-geometry group must run first
-        hy, wy = K_mcp.luma_ext_dims(sps.width, sps.height)
-        hc, wc = K_mcp.chroma_ext_dims(sps.width, sps.height)
+        hy, wy = K_mc.luma_ext_dims(sps.width, sps.height)
+        hc, wc = K_mc.chroma_ext_dims(sps.width, sps.height)
         self._stack_y = jnp.zeros((R, hy, wy), jnp.int32)
         self._stack_c = jnp.zeros((R, hc, wc), jnp.int32)
         self._dstack_key = key
@@ -688,8 +685,8 @@ class Decoder:
                     self._stack_y, self._stack_c, p.slot,
                     p.frame.y, p.frame.cb, p.frame.cr)
 
-    def _reconstruct_tpu(self, pic: PictureData):
-        """Whole-picture reconstruction on the jitted TPU pipeline
+    def _reconstruct_device(self, pic: PictureData):
+        """Whole-picture reconstruction on the jitted device pipeline
         (core/recon_tpu.py)."""
         import os
 
@@ -706,8 +703,6 @@ class Decoder:
             self._steps = {k: jnp.asarray(v)
                            for k, v in RT.step_tables(w, h).items()}
             self._steps_key = key
-        be = RT.default_mc_backend()
-        wf = os.environ.get("BROADWAY_WF", be)
 
         from ..bitstream import native as nat
         if nat.pack2_available() and not os.environ.get("BW_NO_PACK") \
@@ -715,7 +710,7 @@ class Decoder:
             # fastest path: ONE COMPACT upload (v2, ~13 B/MB + sparse
             # rows), persistent device DPB stacks updated in place
             # inside a single jit call per picture; output delivered as
-            # a single u8 YUV buffer (host link is the bottleneck)
+            # a single u8 YUV buffer
             from . import packed as PK
             lay = PK.get_packed_layout_v2(w, h)
             if getattr(self, "_pack2_scratch", None) is None or \
@@ -729,12 +724,12 @@ class Decoder:
                 if self.group_frames > 1:
                     # frame-group fast path: queue; the jit runs when
                     # the group fills (or on any forcing access)
-                    fr = RT.LazyTpuFrame(self._flush_group)
+                    fr = RT.LazyDeviceFrame(self._flush_group)
                     self._group_pend.append({
                         "buf": buf, "bk": bk, "slot": slot,
                         "frame": fr,
                         "cfg": (lay, pps.constrained_intra_pred,
-                                pps.chroma_qp_index_offset, be, wf,
+                                pps.chroma_qp_index_offset,
                                 self._steps)})
                     if len(self._group_pend) >= self.group_frames:
                         self._flush_group()
@@ -745,18 +740,17 @@ class Decoder:
                     # upload + dispatch on the pump worker: the H2D
                     # block rides the worker while this (feed) thread
                     # parses the next picture's slices
-                    fr = RT.LazyTpuFrame(self._pump_flush)
+                    fr = RT.LazyDeviceFrame(self._pump_flush)
                     steps = self._steps
 
                     def job(buf=buf, bk=bk, slot=slot, lay=lay,
-                            steps=steps, ci=ci, co=co, be=be, wf=wf,
-                            fr=fr):
+                            steps=steps, ci=ci, co=co, fr=fr):
                         y, cb, cr, yuv, self._stack_y, self._stack_c = \
                             RT.decode_picture_packed2(
                                 jax.device_put(buf), self._stack_y,
                                 self._stack_c, slot, steps, lay=lay,
                                 bk=bk, constrained_intra=ci,
-                                chroma_qp_offset=co, mc=be, wf=wf)
+                                chroma_qp_offset=co)
                         fr._set(y, cb, cr, yuv)
 
                     self._pump_submit(job)
@@ -767,9 +761,8 @@ class Decoder:
                         dbuf, self._stack_y, self._stack_c, slot,
                         self._steps, lay=lay, bk=bk,
                         constrained_intra=ci,
-                        chroma_qp_offset=co,
-                        mc=be, wf=wf)
-                return RT.TpuFrame(y, cb, cr, pad=False, yuv_u8=yuv)
+                        chroma_qp_offset=co)
+                return RT.DeviceFrame(y, cb, cr, pad=False, yuv_u8=yuv)
 
         if nat.pack_available() and not os.environ.get("BW_NO_PACK"):
             # fast path: ONE packed upload, persistent device DPB stacks
@@ -789,9 +782,8 @@ class Decoder:
                     dbuf, self._stack_y, self._stack_c, slot, self._steps,
                     lay=lay, kb=kb,
                     constrained_intra=pps.constrained_intra_pred,
-                    chroma_qp_offset=pps.chroma_qp_index_offset,
-                    mc=be, wf=wf)
-            return RT.TpuFrame(y, cb, cr, pad=False)
+                    chroma_qp_offset=pps.chroma_qp_index_offset)
+            return RT.DeviceFrame(y, cb, cr, pad=False)
 
         self._flush_group()
         arrs = RT.host_picture_arrays(pic, pps.chroma_qp_index_offset,
@@ -803,9 +795,8 @@ class Decoder:
         y, cb, cr = RT.decode_picture(
             arrs, ref_y, ref_c, self._steps,
             w_mbs=w, h_mbs=h,
-            chroma_qp_offset=pps.chroma_qp_index_offset,
-            mc=be, wf=wf)
-        return RT.TpuFrame(y, cb, cr)
+            chroma_qp_offset=pps.chroma_qp_index_offset)
+        return RT.DeviceFrame(y, cb, cr)
 
     def _drain(self) -> None:
         for p in self.dpb.drain_outputs():
@@ -913,13 +904,13 @@ class Decoder:
                               if k != "planes"})
             if f["planes"] is not None:
                 y, cb, cr = f["planes"]
-                if self.backend == "tpu":
+                if self.backend == "device":
                     import jax.numpy as jnp
 
-                    from .recon_tpu import TpuFrame
-                    p.frame = TpuFrame(jnp.asarray(y.astype("int32")),
-                                       jnp.asarray(cb.astype("int32")),
-                                       jnp.asarray(cr.astype("int32")))
+                    from .recon_tpu import DeviceFrame
+                    p.frame = DeviceFrame(jnp.asarray(y.astype("int32")),
+                                          jnp.asarray(cb.astype("int32")),
+                                          jnp.asarray(cr.astype("int32")))
                 else:
                     fr = Frame.__new__(Frame)
                     fr.y, fr.cb, fr.cr = y, cb, cr

@@ -6,8 +6,8 @@ to-be-displayed, then free), init ref list = sorted prefix
 sliding window :909, output = smallest-POC to-be-displayed picture when
 fullness exceeds dpbSize (:1380-1460), flush :1500.
 
-TPU note: frames are whatever array type the backend produces (NumPy here,
-device-resident jax.Array in the TPU backend — the DPB is index/metadata
+Note: frames are whatever array type the backend produces (NumPy here,
+device-resident jax.Array in the device backend — the DPB is index/metadata
 bookkeeping only and never touches pixel data).
 """
 

@@ -1,26 +1,24 @@
-"""TPU pixel backend: whole-picture reconstruction as one jitted JAX
+"""Device pixel backend: whole-picture reconstruction as one jitted JAX
 pipeline (compiled once per (resolution, dpb-size); SPS change retraces).
 
-TPU-first dataflow (SURVEY.md §7 Stage B):
+Dataflow (SURVEY.md §7 Stage B):
   - stages 1-3 run data-parallel in raster MB space [nMB, ...]:
-    residual dequant+IDCT, quarter-pel MC (Pallas kernel ops/tpu/
-    mc_pallas on TPU, XLA gather fallback elsewhere), base assembly
-    (inter + I_PCM).
+    residual dequant+IDCT, quarter-pel MC (XLA gather, ops/tpu/inter),
+    base assembly (inter + I_PCM).
   - the per-MB tensors are then packed ON DEVICE (one row-gather) into a
     DIAGONAL-MAJOR grid [n_steps, lanes]: step d holds the MBs of
     wavefront anti-diagonal x + 2*y == d, lane = y - ymin(d) + LP.
     Neighbour MBs (A,B,C,D) of a whole diagonal live at fixed lane
     shifts in rows d-1/d-2/d-3, so the sequential wavefront stages need
     only row dynamic-slices and lane rolls inside lax.scan.
-  - stages 4/5 (intra prediction, deblocking): Pallas streaming-
-    wavefront kernels (ops/tpu/wavefront_pallas) on TPU; equivalent
-    lax.scan wavefronts (table-driven predictors ops/tpu/intra, edge
-    filters ops/tpu/deblock) as the non-TPU fallback and oracle.
+  - stages 4/5 (intra prediction, deblocking): lax.scan wavefronts over
+    the diagonals (table-driven predictors ops/tpu/intra, edge filters
+    ops/tpu/deblock).
   - unpack once at the end to raster planes.
 
-Reference frames are held device-resident in the MC kernel's plane
-format: edge-replicated + DMA-extended luma, lane-interleaved chroma
-(ops/tpu/mc_pallas.pad_luma / pad_chroma).
+Reference frames are held device-resident as edge-replicated padded
+planes: luma, and lane-interleaved chroma (ops/tpu/inter.pad_luma /
+pad_chroma).
 
 Bit-exactness oracle: core/recon_cpu.py + core/deblock_impl.py (NumPy),
 themselves validated against the reference C decoder.
@@ -38,8 +36,8 @@ import jax.numpy as jnp
 from ..bitstream.mb_layer import (MB_I4x4, MB_I16x16, MB_IPCM, MB_P,
                                   PictureData)
 from ..ops.tpu import deblock as K_db
+from ..ops.tpu import inter as K_mc
 from ..ops.tpu import intra as K_in
-from ..ops.tpu import mc_pallas as K_mcp
 from ..ops.tpu import residual as K_res
 
 LP = 2   # lane padding on each side of a diagonal row
@@ -89,8 +87,7 @@ class WavefrontLayout:
         # lane = y + LP (uncompacted): neighbour lane shifts are the
         # CONSTANTS shA=0 (left, d-1), shB=shC=shD=-1 (up row, d-2 /
         # up-right d-1 / up-left d-3) — no per-step dynamic rolls.
-        # rounded to the sublane tile (8) so [S, LS, ...] rows DMA cleanly
-        self.LS = -(-(h_mbs + 2 * LP) // 8) * 8
+        self.LS = h_mbs + 2 * LP
         # addr -> (row d, lane)
         self.slot_row = np.zeros(w_mbs * h_mbs, np.int32)
         self.slot_lane = np.zeros(w_mbs * h_mbs, np.int32)
@@ -117,49 +114,12 @@ class WavefrontLayout:
         out[self.slot_row, self.slot_lane] = arr
         return out
 
-    def pack_dev(self, a: jnp.ndarray, batch: int = 1) -> jnp.ndarray:
-        """[B*n, ...] -> [B*S, LS, ...] on device (row-gather, 0 fill)."""
-        n = self.w * self.h
-        fill = jnp.zeros((1,) + a.shape[1:], a.dtype)
-        if batch == 1:
-            addr = self.slot_addr
-        else:
-            addr = np.concatenate(
-                [np.where(self.slot_addr == n, batch * n,
-                          self.slot_addr + b * n) for b in range(batch)])
-        flat = jnp.take(jnp.concatenate([a, fill], axis=0),
-                        jnp.asarray(addr), axis=0)
-        return flat.reshape((batch * self.S, self.LS) + a.shape[1:])
-
-    def _ls_addr(self, batch: int) -> np.ndarray:
-        """Slot-addr table for LANE-axis stream batching:
-        out[d, b*LS + l] = stream b's MB at (row d, lane l)."""
-        key = ("ls", batch)
-        cache = getattr(self, "_addr_cache", None)
-        if cache is None:
-            cache = self._addr_cache = {}
-        if key not in cache:
-            n = self.w * self.h
-            per = self.slot_addr.reshape(self.S, self.LS)
-            cols = [np.where(per == n, batch * n, per + b * n)
-                    for b in range(batch)]
-            cache[key] = np.concatenate(cols, axis=1).reshape(-1)
-        return cache[key]
-
-    def pack_dev_ls(self, a: jnp.ndarray, batch: int) -> jnp.ndarray:
-        """[B*n, ...] -> [S, B*LS, ...]: streams side by side on the
-        LANE axis. The diagonal step count stays S (not B*S), so the
-        sequential wavefront cost is amortized over B streams — the
-        multi-stream scaling axis for the Pallas kernels. Cross-stream
-        lane bleed at block seams is masked by the per-MB availability
-        / filter flags, exactly like picture borders."""
-        if batch == 1:
-            return self.pack_dev(a)
-        n = self.w * self.h
+    def pack_dev(self, a: jnp.ndarray) -> jnp.ndarray:
+        """[n, ...] -> [S, LS, ...] on device (row-gather, 0 fill)."""
         fill = jnp.zeros((1,) + a.shape[1:], a.dtype)
         flat = jnp.take(jnp.concatenate([a, fill], axis=0),
-                        jnp.asarray(self._ls_addr(batch)), axis=0)
-        return flat.reshape((self.S, batch * self.LS) + a.shape[1:])
+                        jnp.asarray(self.slot_addr), axis=0)
+        return flat.reshape((self.S, self.LS) + a.shape[1:])
 
 
 _LAYOUTS: Dict[tuple, WavefrontLayout] = {}
@@ -172,9 +132,9 @@ def get_layout(w_mbs: int, h_mbs: int) -> WavefrontLayout:
     return _LAYOUTS[key]
 
 
-class TpuFrame:
-    """Device-resident decoded picture: int32 planes + the MC kernel's
-    reference-plane copies (extended padded luma, interleaved chroma).
+class DeviceFrame:
+    """Device-resident decoded picture: int32 planes + the MC
+    reference-plane copies (padded luma, interleaved chroma).
     When the decode emitted a packed u8 YUV buffer (yuv_u8), tobytes()
     fetches that single buffer — one 1.5 B/pixel transfer instead of
     three int32 planes (4x fewer bytes over the host link)."""
@@ -185,8 +145,8 @@ class TpuFrame:
         self.y, self.cb, self.cr = y, cb, cr
         self.yuv_u8 = yuv_u8
         if pad:
-            self.y_pad = K_mcp.pad_luma(y)
-            self.c_pad = K_mcp.pad_chroma(cb, cr)
+            self.y_pad = K_mc.pad_luma(y)
+            self.c_pad = K_mc.pad_chroma(cb, cr)
 
     def start_fetch(self) -> None:
         """Begin the device->host copy of this frame's YUV without
@@ -211,7 +171,7 @@ class TpuFrame:
                 np.asarray(self.cr).astype(np.uint8).tobytes())
 
 
-class LazyTpuFrame:
+class LazyDeviceFrame:
     """Placeholder frame for the frame-group fast path and the async
     dispatch pump: planes materialize when the pending group/pump job
     runs. Any pixel access forces it, so consumers never observe the
@@ -229,14 +189,14 @@ class LazyTpuFrame:
         self._lock = threading.Lock()
 
     def _set(self, y, cb, cr, yuv) -> None:
-        fr = TpuFrame(y, cb, cr, pad=False, yuv_u8=yuv)
+        fr = DeviceFrame(y, cb, cr, pad=False, yuv_u8=yuv)
         with self._lock:
             self._planes = fr
             want = self._want_fetch
         if want:
             fr.start_fetch()
 
-    def _ensure(self) -> "TpuFrame":
+    def _ensure(self) -> "DeviceFrame":
         if self._planes is None:
             self._force()
         return self._planes
@@ -412,16 +372,15 @@ def _roll(x: jnp.ndarray, sh) -> jnp.ndarray:
 
 
 def mc_predict_xla(ref_y, ref_c, mv, ref_blk, w_mbs, h_mbs, mb0=0):
-    # h_mbs here must be the FULL picture height (clip bounds + positions
-    # are plane-global even when decoding an MB-row band)
-    """XLA-gather MC fallback (CPU tests / non-TPU backends); same
-    output layout as the Pallas kernel: pred_y [n,16,16],
-    pred_c [n,8,16] interleaved."""
-    from ..ops.tpu import inter as K_mc
+    """Quarter-pel MC of every 4x4 block as one XLA gather:
+    pred_y [n,16,16], pred_c [n,8,16] (cb/cr lane-interleaved).
+    h_mbs must be the FULL picture height (clip bounds and positions
+    are plane-global even when decoding an MB-row band)."""
     n = mv.shape[0]
     W, H = w_mbs * 16, h_mbs * 16
-    hp0, wp0 = H + 2 * K_mcp.PAD, W + 2 * K_mcp.PAD
-    hc0, wc0 = H // 2 + 2 * K_mcp.PAD, W // 2 + 2 * K_mcp.PAD
+    hp0, wp0 = K_mc.luma_ext_dims(W, H)
+    hc0, wc0 = K_mc.chroma_ext_dims(W, H)
+    wc0 //= 2
 
     mb = mb0 + jnp.arange(n) % (w_mbs * h_mbs)
     pxv = (mb % w_mbs).astype(jnp.int32) * 16
@@ -455,12 +414,11 @@ def decode_picture_impl(arrs: Dict[str, jnp.ndarray],
                         ref_y: jnp.ndarray, ref_c: jnp.ndarray,
                         steps: Dict[str, jnp.ndarray],
                         w_mbs: int, h_mbs: int, chroma_qp_offset: int,
-                        run_stages: int = 3, mc: str = "pallas",
-                        mb0: int = 0, ref_h_mbs: int = None,
-                        wf: str = "xla", batch: int = 1):
+                        run_stages: int = 3,
+                        mb0: int = 0, ref_h_mbs: int = None):
     lay = get_layout(w_mbs, h_mbs)
-    S, LS = lay.S, lay.LS
-    N = arrs["qp"].shape[0]     # raster MB count (band/full, x batch)
+    LS = lay.LS
+    N = arrs["qp"].shape[0]     # raster MB count (band or full)
 
     # ---- stage 1: residuals (raster MB space) -------------------------
     qp = arrs["qp"]
@@ -503,16 +461,6 @@ def decode_picture_impl(arrs: Dict[str, jnp.ndarray],
     if run_stages == 0:
         pred_y = jnp.zeros((N, 16, 16), jnp.int32)
         pred_c = jnp.zeros((N, 8, 16), jnp.int32)
-    elif mc == "precomputed":      # batched path: MC ran pre-vmap
-        pred_y = arrs["mc_pred_y"]
-        pred_c = arrs["mc_pred_c"]
-    elif mc in ("pallas", "pallas_interp"):
-        tabs = K_mcp.mc_tables_dev(
-            arrs["mv"], arrs["ref_blk"], w_mbs * 16,
-            (ref_h_mbs or h_mbs) * 16, mb0=mb0,
-            n_ref=ref_y.shape[0] // batch, batch=batch)
-        pred_y, pred_c = K_mcp.mc_predict(ref_y, ref_c, tabs,
-                                          interpret=mc == "pallas_interp")
     else:
         pred_y, pred_c = mc_predict_xla(ref_y, ref_c, arrs["mv"],
                                         arrs["ref_blk"], w_mbs,
@@ -533,70 +481,6 @@ def decode_picture_impl(arrs: Dict[str, jnp.ndarray],
     base_cr = jnp.where(is_pcm, pcm[:, 320:384].reshape(N, 8, 8),
                         jnp.where(is_p,
                                   jnp.clip(pred_cr + res_cr_mb, 0, 255), 0))
-
-    # ---- Pallas wavefront path: intra + deblock kernels ----------------
-    # Streams batch along the LANE axis ([S, B*LS, ...]): the diagonal
-    # step count stays S, so B streams amortize the sequential
-    # wavefront — the multi-stream scaling axis (cross-stream lane
-    # bleed is masked by availability/filter flags like picture
-    # borders, so masked edges stay bit-exact).
-    if wf in ("pallas", "pallas_interp"):
-        interp = wf == "pallas_interp"
-        from ..ops.tpu import wavefront_pallas as K_wf
-        pk = lambda a: lay.pack_dev_ls(a, batch)
-        Yf = pk(base_y.reshape(N, 256))
-        Cf = pk(jnp.concatenate([base_cb.reshape(N, 64),
-                                 base_cr.reshape(N, 64)], axis=1))
-
-        def unpack1(Yp, CBp, CRp):
-            return (_unpack_to_plane(Yp, lay, 16),
-                    _unpack_to_plane(CBp, lay, 8),
-                    _unpack_to_plane(CRp, lay, 8))
-
-        def unpack(Yf, Cf):
-            # [S, B*LS, ...] -> per-stream [B, S, LS, ...]
-            Yp = Yf.reshape(S, batch, LS, 256).transpose(1, 0, 2, 3) \
-                .reshape(batch, S, LS, 16, 16)
-            Cp = Cf.reshape(S, batch, LS, 128).transpose(1, 0, 2, 3)
-            CBp = Cp[:, :, :, 0:64].reshape(batch, S, LS, 8, 8)
-            CRp = Cp[:, :, :, 64:128].reshape(batch, S, LS, 8, 8)
-            out = jax.vmap(unpack1)(Yp, CBp, CRp)
-            if batch == 1:
-                return out[0][0], out[1][0], out[2][0]
-            return out
-
-        if run_stages <= 1:
-            return unpack(Yf, Cf)
-        RYf = pk(res_y_mb.reshape(N, 256))
-        RCf = pk(jnp.concatenate([res_cb_mb.reshape(N, 64),
-                                  res_cr_mb.reshape(N, 64)], axis=1))
-        Pin = K_wf.intra_params(arrs, pk)
-        Yf, Cf = K_wf.intra_wavefront(Yf, Cf, RYf, RCf, Pin,
-                                      interpret=interp)
-        if run_stages <= 2:
-            return unpack(Yf, Cf)
-        P_db = K_wf.deblock_params(arrs, w_mbs, batch * h_mbs,
-                                   chroma_qp_offset, pk)
-
-        def run_db(args):
-            o = K_wf.deblock_wavefront(args[0], args[1], P_db,
-                                       interpret=interp)
-            return o[0], o[1]
-
-        if batch == 1:
-            Yf, Cf = jax.lax.cond(
-                jnp.reshape(arrs["whole_conceal"], ()), lambda a: a,
-                run_db, (Yf, Cf))
-        else:
-            Yd, Cd = run_db((Yf, Cf))
-            wc = arrs["whole_conceal"].reshape(1, batch, 1)
-            Yf = jnp.where(wc, Yf.reshape(S, batch, LS * 256),
-                           Yd.reshape(S, batch, LS * 256)) \
-                .reshape(S, batch * LS, 256)
-            Cf = jnp.where(wc, Cf.reshape(S, batch, LS * 128),
-                           Cd.reshape(S, batch, LS * 128)) \
-                .reshape(S, batch * LS, 128)
-        return unpack(Yf, Cf)
 
     # ---- device-side pack into the wavefront layout -------------------
     pk = lay.pack_dev
@@ -718,7 +602,7 @@ def decode_picture_impl(arrs: Dict[str, jnp.ndarray],
         return (_unpack_to_plane(Y, lay, 16), _unpack_to_plane(CB, lay, 8),
                 _unpack_to_plane(CR, lay, 8))
 
-    # ---- stage 5: deblock wavefront (lax.scan fallback) ----------------
+    # ---- stage 5: deblock wavefront ------------------------------------
     def run_deblock(args):
         return deblock_scan(args[0], args[1], args[2], arrs, steps_x)
 
@@ -732,9 +616,9 @@ def decode_picture_impl(arrs: Dict[str, jnp.ndarray],
 
 
 def deblock_scan(Y, CB, CR, arrs, steps_x):
-    """In-loop deblocking as a lax.scan over wavefront diagonals (the
-    XLA fallback twin of ops/tpu/wavefront_pallas._db_kernel; bit-exact
-    vs core/deblock_impl.py which mirrors h264bsd_deblocking.c:574).
+    """In-loop deblocking as a lax.scan over wavefront diagonals
+    (bit-exact vs core/deblock_impl.py, which mirrors
+    h264bsd_deblocking.c:574).
 
     Y [S,LS,16,16], CB/CR [S,LS,8,8] packed planes; arrs: packed per-MB
     dict (total_coeff, mv, ref_blk, is_inter, FT, FL, enable, qp, offA,
@@ -960,41 +844,30 @@ def deblock_scan(Y, CB, CR, arrs, steps_x):
     return Y, CB, CR
 
 
-def default_mc_backend(device=None) -> str:
-    """Pallas MC on real TPUs, XLA gather elsewhere (CPU test meshes).
-    Pass the device (or any device of the mesh) the pipeline will run
-    on; defaults to the process default device."""
-    if device is None:
-        return "pallas" if jax.default_backend() == "tpu" else "xla"
-    return "pallas" if device.platform == "tpu" else "xla"
-
-
 decode_picture = functools.partial(
     jax.jit, static_argnames=("w_mbs", "h_mbs", "chroma_qp_offset",
-                              "run_stages", "mc", "mb0", "ref_h_mbs",
-                              "wf", "batch"))(
+                              "run_stages", "mb0", "ref_h_mbs"))(
                                   decode_picture_impl)
 
 
 @functools.partial(jax.jit, donate_argnums=(0, 1))
 def update_stack_slot(ref_y, ref_c, slot, y, cb, cr):
     """Write one decoded frame into the persistent device ref-plane
-    stacks (MC kernel plane format) at its DPB frame-store slot."""
+    stacks (padded MC plane format) at its DPB frame-store slot."""
     ref_y = jax.lax.dynamic_update_index_in_dim(
-        ref_y, K_mcp.pad_luma(y), slot, axis=0)
+        ref_y, K_mc.pad_luma(y), slot, axis=0)
     ref_c = jax.lax.dynamic_update_index_in_dim(
-        ref_c, K_mcp.pad_chroma(cb, cr), slot, axis=0)
+        ref_c, K_mc.pad_chroma(cb, cr), slot, axis=0)
     return ref_y, ref_c
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("lay", "kb", "constrained_intra", "chroma_qp_offset",
-                     "mc", "wf"),
+    static_argnames=("lay", "kb", "constrained_intra", "chroma_qp_offset"),
     donate_argnums=(1, 2))
 def decode_picture_packed(buf, ref_y, ref_c, slot, steps, *,
                           lay, kb: int, constrained_intra: bool,
-                          chroma_qp_offset: int, mc: str, wf: str):
+                          chroma_qp_offset: int):
     """End-to-end fast path: single packed upload in, persistent DPB
     ref-plane stacks updated in place (donated), decoded planes out.
     One jit call per picture — no other per-frame device traffic."""
@@ -1002,44 +875,36 @@ def decode_picture_packed(buf, ref_y, ref_c, slot, steps, *,
     arrs = unpack_arrs(buf, lay, kb, constrained_intra, chroma_qp_offset)
     y, cb, cr = decode_picture_impl(
         arrs, ref_y, ref_c, steps, w_mbs=lay.w, h_mbs=lay.h,
-        chroma_qp_offset=chroma_qp_offset, mc=mc, wf=wf)
+        chroma_qp_offset=chroma_qp_offset)
     ref_y = jax.lax.dynamic_update_index_in_dim(
-        ref_y, K_mcp.pad_luma(y), slot, axis=0)
+        ref_y, K_mc.pad_luma(y), slot, axis=0)
     ref_c = jax.lax.dynamic_update_index_in_dim(
-        ref_c, K_mcp.pad_chroma(cb, cr), slot, axis=0)
+        ref_c, K_mc.pad_chroma(cb, cr), slot, axis=0)
     return y, cb, cr, ref_y, ref_c
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("lay", "bk", "constrained_intra",
-                     "chroma_qp_offset", "mc", "wf"),
-    donate_argnums=(1, 2))
-def decode_picture_packed2(buf, ref_y, ref_c, slot, steps, *,
-                           lay, bk: tuple, constrained_intra: bool,
-                           chroma_qp_offset: int, mc: str, wf: str):
-    """End-to-end fast path, COMPACT v2 upload (core/packed.py v2):
-    one small packed buffer in, persistent DPB ref-plane stacks updated
-    in place (donated), decoded planes out — plus a single u8 YUV
-    buffer so host delivery is one minimal-size fetch."""
+def _decode_packed2_step(buf, ref_y, ref_c, slot, steps, lay, bk,
+                         constrained_intra, chroma_qp_offset):
+    """One picture of the compact v2 path (shared by the single-stream
+    and the vmapped multi-stream jits)."""
     from .packed import unpack_arrs_v2
     arrs = unpack_arrs_v2(buf, lay, bk, constrained_intra,
                           chroma_qp_offset)
-    # XLA workaround (round-4 root cause of test_tpu_multislice): when
+    # XLA workaround (root cause of an old multislice failure): when
     # the v2 unpack (bitcast/scatter chains) fuses INTO the deblock
-    # boundary-strength computation, XLA miscompiles the internal copy
-    # of the mv/ref compare chain (bs_left of one MB drops to 0) even
-    # though the same values exported as jit outputs are correct. A
+    # boundary-strength computation, XLA miscompiled the internal copy
+    # of the mv/ref compare chain (bs_left of one MB dropped to 0) even
+    # though the same values exported as jit outputs were correct. A
     # barrier between unpack and consumers splits those fusions while
-    # keeping ONE jit dispatch per picture; measured cost is noise.
+    # keeping ONE jit dispatch per picture.
     arrs = jax.lax.optimization_barrier(arrs)
     y, cb, cr = decode_picture_impl(
         arrs, ref_y, ref_c, steps, w_mbs=lay.w, h_mbs=lay.h,
-        chroma_qp_offset=chroma_qp_offset, mc=mc, wf=wf)
+        chroma_qp_offset=chroma_qp_offset)
     ref_y = jax.lax.dynamic_update_index_in_dim(
-        ref_y, K_mcp.pad_luma(y), slot, axis=0)
+        ref_y, K_mc.pad_luma(y), slot, axis=0)
     ref_c = jax.lax.dynamic_update_index_in_dim(
-        ref_c, K_mcp.pad_chroma(cb, cr), slot, axis=0)
+        ref_c, K_mc.pad_chroma(cb, cr), slot, axis=0)
     yuv = jnp.concatenate(
         [y.astype(jnp.uint8).reshape(-1),
          cb.astype(jnp.uint8).reshape(-1),
@@ -1050,13 +915,28 @@ def decode_picture_packed2(buf, ref_y, ref_c, slot, steps, *,
 @functools.partial(
     jax.jit,
     static_argnames=("lay", "bk", "constrained_intra",
-                     "chroma_qp_offset", "mc", "wf", "group"),
+                     "chroma_qp_offset"),
+    donate_argnums=(1, 2))
+def decode_picture_packed2(buf, ref_y, ref_c, slot, steps, *,
+                           lay, bk: tuple, constrained_intra: bool,
+                           chroma_qp_offset: int):
+    """End-to-end fast path, COMPACT v2 upload (core/packed.py v2):
+    one small packed buffer in, persistent DPB ref-plane stacks updated
+    in place (donated), decoded planes out — plus a single u8 YUV
+    buffer so host delivery is one minimal-size fetch."""
+    return _decode_packed2_step(buf, ref_y, ref_c, slot, steps, lay, bk,
+                                constrained_intra, chroma_qp_offset)
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("lay", "bk", "constrained_intra",
+                     "chroma_qp_offset", "group"),
     donate_argnums=(1, 2))
 def decode_pictures_packed_group(bufs, ref_y, ref_c, slots, steps, *,
                                  lay, bk: tuple,
                                  constrained_intra: bool,
-                                 chroma_qp_offset: int, mc: str,
-                                 wf: str, group: int):
+                                 chroma_qp_offset: int, group: int):
     """Frame-group fast path: G consecutive pictures of ONE stream
     decoded inside a single jit call (python-unrolled — picture g+1's
     MC reads the DPB stacks updated by picture g). Amortizes the
@@ -1065,27 +945,15 @@ def decode_pictures_packed_group(bufs, ref_y, ref_c, slots, steps, *,
     input chunk of NALs per postMessage (Decoder.js:344-354
     playStream loop). bufs [G, size] u8 (common bk via expand_buf_v2),
     slots [G] i32."""
-    from .packed import unpack_arrs_v2
     ys, cbs, crs, yuvs = [], [], [], []
     for g in range(group):
-        arrs = unpack_arrs_v2(bufs[g], lay, bk, constrained_intra,
-                              chroma_qp_offset)
-        # same XLA fusion workaround as decode_picture_packed2
-        arrs = jax.lax.optimization_barrier(arrs)
-        y, cb, cr = decode_picture_impl(
-            arrs, ref_y, ref_c, steps, w_mbs=lay.w, h_mbs=lay.h,
-            chroma_qp_offset=chroma_qp_offset, mc=mc, wf=wf)
-        ref_y = jax.lax.dynamic_update_index_in_dim(
-            ref_y, K_mcp.pad_luma(y), slots[g], axis=0)
-        ref_c = jax.lax.dynamic_update_index_in_dim(
-            ref_c, K_mcp.pad_chroma(cb, cr), slots[g], axis=0)
+        y, cb, cr, yuv, ref_y, ref_c = _decode_packed2_step(
+            bufs[g], ref_y, ref_c, slots[g], steps, lay, bk,
+            constrained_intra, chroma_qp_offset)
         ys.append(y)
         cbs.append(cb)
         crs.append(cr)
-        yuvs.append(jnp.concatenate(
-            [y.astype(jnp.uint8).reshape(-1),
-             cb.astype(jnp.uint8).reshape(-1),
-             cr.astype(jnp.uint8).reshape(-1)]))
+        yuvs.append(yuv)
     return (jnp.stack(ys), jnp.stack(cbs), jnp.stack(crs),
             jnp.stack(yuvs), ref_y, ref_c)
 
@@ -1093,59 +961,30 @@ def decode_pictures_packed_group(bufs, ref_y, ref_c, slots, steps, *,
 @functools.partial(
     jax.jit,
     static_argnames=("lay", "bk", "constrained_intra",
-                     "chroma_qp_offset", "mc", "wf", "batch"),
+                     "chroma_qp_offset"),
     donate_argnums=(1, 2))
 def decode_pictures_packed_batch(bufs, ref_y, ref_c, slots, steps, *,
                                  lay, bk: tuple,
                                  constrained_intra: bool,
-                                 chroma_qp_offset: int, mc: str, wf: str,
-                                 batch: int):
-    """Lockstep multi-stream fast path: B compact v2 buffers in, one
-    batched pipeline pass (streams on the LANE axis), persistent
-    per-stream DPB stacks updated in place. bufs [B, size] u8,
-    ref_y/ref_c [B, R, ...], slots [B]."""
-    from .packed import unpack_arrs_v2
-    per = [unpack_arrs_v2(bufs[b], lay, bk, constrained_intra,
-                          chroma_qp_offset) for b in range(batch)]
-    # same XLA fusion workaround as decode_picture_packed2
-    per = jax.lax.optimization_barrier(per)
-    flat = {}
-    for k in per[0]:
-        if k == "whole_conceal":
-            flat[k] = jnp.stack([p[k] for p in per])
-        else:
-            flat[k] = jnp.concatenate([p[k] for p in per])
-    B, R = batch, ref_y.shape[1]
-    y, cb, cr = decode_picture_impl(
-        flat, ref_y.reshape((B * R,) + ref_y.shape[2:]),
-        ref_c.reshape((B * R,) + ref_c.shape[2:]), steps,
-        w_mbs=lay.w, h_mbs=lay.h, chroma_qp_offset=chroma_qp_offset,
-        mc=mc, wf=wf, batch=B)
-    if B == 1:      # impl returns unbatched planes for batch == 1
-        y, cb, cr = y[None], cb[None], cr[None]
-
-    def upd(sy, sc, yy, cbb, crr, s):
-        sy = jax.lax.dynamic_update_index_in_dim(
-            sy, K_mcp.pad_luma(yy), s, axis=0)
-        sc = jax.lax.dynamic_update_index_in_dim(
-            sc, K_mcp.pad_chroma(cbb, crr), s, axis=0)
-        return sy, sc
-
-    ref_y, ref_c = jax.vmap(upd)(ref_y, ref_c, y, cb, cr, slots)
-    yuv = jnp.concatenate(
-        [y.astype(jnp.uint8).reshape(batch, -1),
-         cb.astype(jnp.uint8).reshape(batch, -1),
-         cr.astype(jnp.uint8).reshape(batch, -1)], axis=1)
-    return y, cb, cr, yuv, ref_y, ref_c
+                                 chroma_qp_offset: int):
+    """Lockstep multi-stream fast path: B compact v2 buffers in, the
+    single-picture pipeline vmapped over streams (each diagonal step of
+    the wavefronts covers all B streams), persistent per-stream DPB
+    stacks updated in place. bufs [B, size] u8, ref_y/ref_c
+    [B, R, ...], slots [B]."""
+    step = functools.partial(_decode_packed2_step, steps=steps, lay=lay,
+                             bk=bk, constrained_intra=constrained_intra,
+                             chroma_qp_offset=chroma_qp_offset)
+    return jax.vmap(step)(bufs, ref_y, ref_c, slots)
 
 
 def ref_stacks(dpb_buffer, width: int, height: int):
     """Build device ref-plane stacks [R,...] from a DPB buffer of
-    TpuFrames (None slots -> zero planes) in the MC kernel format.
+    DeviceFrames (None slots -> zero planes) in the padded MC format.
     Stack position = the picture's stable frame-store slot (pic.ref_slot
     values refer to these)."""
-    hy, wy = K_mcp.luma_ext_dims(width, height)
-    hc, wc = K_mcp.chroma_ext_dims(width, height)
+    hy, wy = K_mc.luma_ext_dims(width, height)
+    hc, wc = K_mc.chroma_ext_dims(width, height)
     zero_y = jnp.zeros((hy, wy), jnp.int32)
     zero_c = jnp.zeros((hc, wc), jnp.int32)
     buf = list(dpb_buffer)

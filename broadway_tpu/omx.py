@@ -1,4 +1,4 @@
-"""OMX-IL-style embedding component — the TPU-native analogue of the
+"""OMX-IL-style embedding component — the analogue of the
 reference's Android `SoftAVC` (Decoder/SoftAVC.cpp/.h: SoftAVC :
 SimpleSoftOMXComponent, 8 input / 2 output buffers SoftAVC.h:53-56,
 onQueueFilled :289 drives H264SwDecDecode, port-settings-change on

@@ -1,5 +1,4 @@
-"""Inter prediction stage — batched quarter-pel MC in JAX (XLA gather
-fallback used on non-TPU backends; the TPU path is ops/tpu/mc_pallas).
+"""Inter prediction stage — batched quarter-pel MC in JAX (XLA gather).
 
 Twin of ops/inter.py (NumPy oracle). All 4x4 luma blocks (and their 2x2
 chroma blocks) are predicted in one batched pass: per-block edge-clamped
@@ -8,10 +7,11 @@ padding == h264bsdFillBlock semantics, h264bsd_reconstruct.c:2222), 6-tap
 (1,-5,20,20,-5,1) half-pel filters, branchless selection over the 16
 fractional positions (lumaFracPos dispatch, h264bsd_reconstruct.c:1819).
 
-Reference planes arrive in the mc_pallas storage format: edge-replicated
-by PAD then extended bottom/right for DMA alignment — so window-origin
-clips use the REAL padded dims (hp0/wp0/hc0/wc0), not the array shape.
-Chroma planes are cb/cr lane-interleaved (lane 2x = cb, 2x+1 = cr).
+Reference planes are stored edge-replicated by PAD on every side
+(pad_luma / pad_chroma); window origins are clipped into the padded
+plane, which reproduces FillBlock's per-pixel clamp exactly. Chroma
+planes are cb/cr lane-interleaved (lane 2x = cb, 2x+1 = cr) so one
+gather serves both planes.
 """
 
 from __future__ import annotations
@@ -19,7 +19,34 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from .mc_pallas import PAD  # re-export; single source of truth
+PAD = 24          # edge-replication pad (>= 10x10 window => clamp-exact)
+
+
+def luma_ext_dims(width: int, height: int):
+    """Padded luma plane dims (rows, cols)."""
+    return height + 2 * PAD, width + 2 * PAD
+
+
+def chroma_ext_dims(width: int, height: int):
+    """Padded interleaved chroma plane dims (rows, lanes) for a picture
+    of luma size width x height."""
+    return height // 2 + 2 * PAD, 2 * (width // 2 + 2 * PAD)
+
+
+def pad_luma(y: jnp.ndarray) -> jnp.ndarray:
+    """[H, W] -> edge-replicated [H+2*PAD, W+2*PAD] int32."""
+    return jnp.pad(y, PAD, mode="edge").astype(jnp.int32)
+
+
+def pad_chroma(cb: jnp.ndarray, cr: jnp.ndarray) -> jnp.ndarray:
+    """[Hc, Wc] x2 -> interleaved edge-replicated
+    [Hc+2*PAD, 2*(Wc+2*PAD)] int32: lane 2*x = cb column x, lane
+    2*x+1 = cr column x (after PAD)."""
+    Hc, Wc = cb.shape
+    cbp = jnp.pad(cb, PAD, mode="edge")
+    crp = jnp.pad(cr, PAD, mode="edge")
+    return jnp.stack([cbp, crp], axis=-1).reshape(
+        Hc + 2 * PAD, 2 * (Wc + 2 * PAD)).astype(jnp.int32)
 
 
 def _tap6(a, axis):
@@ -43,7 +70,7 @@ def mc_luma_blocks(ref_stack: jnp.ndarray, ref_idx: jnp.ndarray,
                    hp0: int, wp0: int) -> jnp.ndarray:
     """Predict N 4x4 luma blocks -> [N, 4, 4] int32 in [0,255].
 
-    ref_stack: [R, >=hp0, >=wp0] int32 (pad_luma format);
+    ref_stack: [R, hp0, wp0] int32 (pad_luma format);
     ref_idx/px/py/mvx/mvy: [N]; hp0/wp0: real padded plane dims."""
     xi = px + (mvx >> 2)
     yi = py + (mvy >> 2)
@@ -91,7 +118,7 @@ def mc_chroma_blocks_il(ref_stack_il: jnp.ndarray, ref_idx: jnp.ndarray,
     """Predict N 2x2 chroma block pairs from interleaved planes ->
     [N, 2, 4] int32 (lanes 0/2 = cb cols, 1/3 = cr cols).
 
-    ref_stack_il: [R, >=hc0, >=2*wc0] (pad_chroma format); px/py are
+    ref_stack_il: [R, hc0, 2*wc0] (pad_chroma format); px/py are
     chroma-plane block positions; hc0/wc0 real padded per-plane dims."""
     xi = px + (mvx >> 3)
     yi = py + (mvy >> 3)

@@ -1,22 +1,22 @@
-"""Multi-host (DCN) decode: stream/GOP sharding across processes.
+"""Multi-host decode: stream/GOP sharding across processes.
 
 The reference's outermost parallel axis is independent decoder
 instances (TestBenchMultipleInstance.c round-robin; storyDemo.html's
-six players). The TPU-native mapping for a multi-host deployment puts
-that axis on DCN — each host decodes its own streams/GOPs with ZERO
-inner-loop cross-host traffic — while a picture's MB-row bands ride
-ICI inside each host (parallel/slices.py). That is the standard
-slow-axis-over-DCN recipe: the only DCN exchange is result collection
-(process_allgather), and the per-picture collectives (band all_gather,
-deblock halo ppermute) stay on the intra-host mesh.
+six players). A multi-host deployment puts that axis across processes
+— each host decodes its own streams/GOPs with ZERO inner-loop
+cross-host traffic — while a picture's MB-row bands ride the fast
+intra-host links (NVLink on a GPU host; parallel/slices.py). The only
+cross-host exchange is result collection (process_allgather), and the
+per-picture collectives (band all_gather, deblock halo ppermute) stay
+on the intra-host mesh.
 
 Layout helpers here build the global (dp x sp) mesh with dp spanning
 processes so the same shard_map pipeline runs unchanged whether dp is
 intra-host (one process) or cross-host (jax.distributed).
 
-Validated without a pod by running N real OS processes with virtual
+Validated without a cluster by running N real OS processes with virtual
 CPU devices (tests/test_multihost.py) — jax.distributed +
-process_index are the same code path a TPU pod uses.
+process_index are the same code path a multi-host GPU job uses.
 """
 
 from __future__ import annotations
@@ -30,8 +30,9 @@ def init_multihost(coordinator_address: str, num_processes: int,
                    process_id: int,
                    local_device_count: Optional[int] = None) -> None:
     """Initialize this process as one member of a multi-host decode
-    job. On TPU pods jax.distributed discovers topology itself; on the
-    CPU validation path we pin the virtual device count and the gloo
+    job. coordinator_address/num_processes/process_id are always given
+    explicitly (nothing here discovers a cluster). On the CPU
+    validation path we pin the virtual device count and the gloo
     collectives backend BEFORE the first jax import side effects."""
     import os
     if local_device_count is not None:
@@ -52,9 +53,9 @@ def init_multihost(coordinator_address: str, num_processes: int,
 
 
 def global_dp_sp_mesh(n_sp: int = None):
-    """Mesh over ALL processes' devices: dp spans hosts (DCN axis),
-    sp spans each host's local devices (ICI axis). n_sp defaults to
-    the local device count."""
+    """Mesh over ALL processes' devices: dp spans hosts (process axis),
+    sp spans each host's local devices (intra-host axis). n_sp
+    defaults to the local device count."""
     import jax
     from jax.sharding import Mesh
 
@@ -70,15 +71,16 @@ def decode_streams_multihost(datas: List[bytes],
                              sp_bands: int = 1) -> List[List[bytes]]:
     """Decode N streams sharded over processes: process p decodes the
     streams with index % num_processes == p on its local devices, then
-    one DCN process_allgather distributes every stream's output bytes
+    one process_allgather distributes every stream's output bytes
     to every host (the only cross-host traffic). Returns the full
-    per-stream output list on every process.
+    per-stream output list on every process. backend defaults to
+    "device" on an accelerator platform and "cpu" otherwise.
 
     sp_bands > 1 routes each local decode through the process's LOCAL
-    sp mesh (MB-row band sharding with ICI collectives,
-    parallel/slices.decode_stream_sliced) — the full dp-over-DCN x
-    sp-over-ICI deployment shape (global_dp_sp_mesh) with dp realized
-    as the process axis.  Streams whose slices don't align with the
+    sp mesh (MB-row band sharding with intra-host collectives,
+    parallel/slices.decode_stream_sliced) — the full dp-across-hosts x
+    sp-within-host deployment shape (global_dp_sp_mesh) with dp
+    realized as the process axis.  Streams whose slices don't align with the
     bands fall back to single-device per picture inside the sliced
     decoder."""
     import jax
@@ -88,7 +90,7 @@ def decode_streams_multihost(datas: List[bytes],
 
     np_, pid = jax.process_count(), jax.process_index()
     if backend is None:
-        backend = "tpu" if jax.default_backend() == "tpu" else "cpu"
+        backend = "cpu" if jax.default_backend() == "cpu" else "device"
 
     sp_mesh = None
     if sp_bands > 1:
@@ -109,7 +111,7 @@ def decode_streams_multihost(datas: List[bytes],
             mine[i] = [o.frame.tobytes()
                        for o in d.decode_annexb(datas[i])]
 
-    # DCN result exchange: one fixed-size u8 tensor (padded),
+    # cross-host result exchange: one fixed-size u8 tensor (padded),
     # allgathered once — the only cross-host traffic in the whole
     # decode. Header per stream: n_frames i32, then a PER-FRAME size
     # table (frames may change size mid-stream on a resolution

@@ -1,13 +1,13 @@
 """Slice-parallel decode: shard a picture's MB-row bands over a device
-mesh — the TPU-native analogue of the reference's multi-worker sliceMode
+mesh — the device analogue of the reference's multi-worker sliceMode
 (SURVEY.md §2.5 P2: each Web Worker decodes its own slices, then workers
 ring-exchange decoded slice regions to rebuild full reference frames,
 Player/Decoder.js:677-727 copySlice).
 
-Here: each chip runs the full pixel pipeline on its band (the band's
+Here: each device runs the full pixel pipeline on its band (the band's
 slices are entropy- and prediction-independent by construction), then an
 `all_gather` over the "sp" mesh axis rebuilds full reference frames on
-every chip — the ICI-collective version of copySlice.
+every device — the collective version of copySlice.
 
 Exactness domain: streams whose slices align with the bands.
  - idc in {1, 2}: bands deblock independently (no filtering across
@@ -19,11 +19,11 @@ Exactness domain: streams whose slices align with the bands.
    next edge's input, so boundary changes cascade downward through the
    whole picture. The bit-exact sharded form is therefore a CHAIN: band
    k deblocks only after receiving band k-1's final bottom MB row
-   (pixels) via `ppermute` — the ICI version of sliceMode's copySlice
+   (pixels) via `ppermute` — the collective version of sliceMode's copySlice
    ring (Player/Decoder.js:677-727) with deblock-order semantics.
    Reconstruction (stages 1-4) still runs fully parallel across bands;
-   only the ~6 ms deblock stage serializes, matching the reference's
-   own sequential semantics.
+   only the deblock stage serializes, matching the reference's own
+   sequential semantics.
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def _deblock_band_ghost(y, cb, cr, gy, gcb, gcr, parrs, steps_g,
 
 def _sliced_x_body(garrs, ref_y, ref_c, steps, steps_g,
                    w_mbs, hb_mbs, chroma_qp_offset,
-                   axis: str, mc: str, h_mbs_full: int, n_bands: int):
+                   axis: str, h_mbs_full: int, n_bands: int):
     """Shared idc-0 band body (inside shard_map): parallel band
     reconstruction, then the chained band deblock with ppermute halos.
     garrs: THIS band's ghost-augmented arrays ((hb+1)*w MBs, row 0 =
@@ -125,7 +125,7 @@ def _sliced_x_body(garrs, ref_y, ref_c, steps, steps_g,
     y, cb, cr = RT.decode_picture_impl(
         rarrs, ref_y, ref_c, steps,
         w_mbs=w_mbs, h_mbs=hb_mbs, chroma_qp_offset=chroma_qp_offset,
-        mc=mc, mb0=band * hb_mbs * w_mbs, ref_h_mbs=h_mbs_full,
+        mb0=band * hb_mbs * w_mbs, ref_h_mbs=h_mbs_full,
         run_stages=2)                      # stages 1-4, no deblock yet
 
     # packed (hb+1)-row metadata for the ghost deblock
@@ -148,7 +148,7 @@ def _sliced_x_body(garrs, ref_y, ref_c, steps, steps_g,
         my = jnp.where(mine, gy2, my)
         mcb = jnp.where(mine, gcb2, mcb)
         mcr = jnp.where(mine, gcr2, mcr)
-        # halo: my final bottom MB row -> next band (the ICI copySlice)
+        # halo: my final bottom MB row -> next band (copySlice)
         ghy = jax.lax.ppermute(oy[-16:], axis, perm)
         ghcb = jax.lax.ppermute(ocb[-8:], axis, perm)
         ghcr = jax.lax.ppermute(ocr[-8:], axis, perm)
@@ -182,14 +182,14 @@ def _sliced_x_body(garrs, ref_y, ref_c, steps, steps_g,
 
 def decode_picture_sliced_x_impl(garrs, ref_y, ref_c, steps, steps_g,
                                  w_mbs, hb_mbs, chroma_qp_offset,
-                                 axis: str = "sp", mc: str = "xla",
+                                 axis: str = "sp",
                                  h_mbs_full: int = None,
                                  n_bands: int = 1):
     """shard_map body, idc 0, fat-host-array upload (leading axis
     sharded over `axis`)."""
     garrs = jax.tree_util.tree_map(lambda x: x[0], garrs)
     return _sliced_x_body(garrs, ref_y, ref_c, steps, steps_g, w_mbs,
-                          hb_mbs, chroma_qp_offset, axis, mc,
+                          hb_mbs, chroma_qp_offset, axis,
                           h_mbs_full, n_bands)
 
 
@@ -221,7 +221,7 @@ def decode_picture_sliced_x_v2_impl(buf, ref_y, ref_c, steps, steps_g,
                                     lay, bk, w_mbs, hb_mbs,
                                     constrained_intra,
                                     chroma_qp_offset,
-                                    axis: str = "sp", mc: str = "xla",
+                                    axis: str = "sp",
                                     h_mbs_full: int = None,
                                     n_bands: int = 1):
     """shard_map body, idc 0, COMPACT v2 upload: the picture's single
@@ -236,7 +236,7 @@ def decode_picture_sliced_x_v2_impl(buf, ref_y, ref_c, steps, steps_g,
     arrs = jax.lax.optimization_barrier(arrs)   # see recon_tpu note
     garrs = _cut_band_ghost_v2(arrs, band, w_mbs, hb_mbs)
     return _sliced_x_body(garrs, ref_y, ref_c, steps, steps_g, w_mbs,
-                          hb_mbs, chroma_qp_offset, axis, mc,
+                          hb_mbs, chroma_qp_offset, axis,
                           h_mbs_full, n_bands)
 
 
@@ -253,9 +253,7 @@ def make_sliced_decoder_x_v2(mesh: Mesh, w_mbs: int, h_mbs: int,
                            lay=lay, bk=bk, w_mbs=w_mbs, hb_mbs=hb,
                            constrained_intra=constrained_intra,
                            chroma_qp_offset=chroma_qp_offset,
-                           axis=axis, h_mbs_full=h_mbs, n_bands=n_bands,
-                           mc=RT.default_mc_backend(
-                               mesh.devices.flat[0]))
+                           axis=axis, h_mbs_full=h_mbs, n_bands=n_bands)
     sharded = shard_map(
         fn, mesh=mesh,
         in_specs=(P(), P(), P(), P(), P()),
@@ -266,7 +264,7 @@ def make_sliced_decoder_x_v2(mesh: Mesh, w_mbs: int, h_mbs: int,
 def decode_picture_sliced_v2_impl(buf, ref_y, ref_c, steps,
                                   lay, bk, w_mbs, hb_mbs,
                                   constrained_intra, chroma_qp_offset,
-                                  axis: str = "sp", mc: str = "xla",
+                                  axis: str = "sp",
                                   h_mbs_full: int = None,
                                   gather: bool = True):
     """shard_map body, idc 1/2 (independent bands), COMPACT v2 upload.
@@ -287,7 +285,7 @@ def decode_picture_sliced_v2_impl(buf, ref_y, ref_c, steps,
     y, cb, cr = RT.decode_picture_impl(
         arrs, ref_y, ref_c, steps,
         w_mbs=w_mbs, h_mbs=hb_mbs, chroma_qp_offset=chroma_qp_offset,
-        mc=mc, mb0=band * nb, ref_h_mbs=h_mbs_full)
+        mb0=band * nb, ref_h_mbs=h_mbs_full)
     if not gather:
         return y[None], cb[None], cr[None]
     fy = jax.lax.all_gather(y, axis)
@@ -312,9 +310,7 @@ def make_sliced_decoder_v2(mesh: Mesh, w_mbs: int, h_mbs: int,
                            lay=lay, bk=bk, w_mbs=w_mbs, hb_mbs=hb,
                            constrained_intra=constrained_intra,
                            chroma_qp_offset=chroma_qp_offset,
-                           axis=axis, h_mbs_full=h_mbs, gather=gather,
-                           mc=RT.default_mc_backend(
-                               mesh.devices.flat[0]))
+                           axis=axis, h_mbs_full=h_mbs, gather=gather)
     sharded = shard_map(
         fn, mesh=mesh,
         in_specs=(P(), P(), P(), P()),
@@ -333,9 +329,7 @@ def make_sliced_decoder_x(mesh: Mesh, w_mbs: int, h_mbs: int,
     hb = h_mbs // n_bands
     fn = functools.partial(decode_picture_sliced_x_impl, w_mbs=w_mbs,
                            hb_mbs=hb, chroma_qp_offset=chroma_qp_offset,
-                           axis=axis, h_mbs_full=h_mbs, n_bands=n_bands,
-                           mc=RT.default_mc_backend(
-                               mesh.devices.flat[0]))
+                           axis=axis, h_mbs_full=h_mbs, n_bands=n_bands)
     sharded = shard_map(
         fn, mesh=mesh,
         in_specs=(P(axis), P(), P(), P(), P()),
@@ -345,7 +339,7 @@ def make_sliced_decoder_x(mesh: Mesh, w_mbs: int, h_mbs: int,
 
 def decode_picture_sliced_impl(barrs, ref_y, ref_c, steps,
                                w_mbs, hb_mbs, chroma_qp_offset,
-                               axis: str = "sp", mc: str = "xla",
+                               axis: str = "sp",
                                h_mbs_full: int = None):
     """shard_map body: decode own band, all-gather to full planes."""
     band = jax.lax.axis_index(axis)
@@ -353,8 +347,8 @@ def decode_picture_sliced_impl(barrs, ref_y, ref_c, steps,
         jax.tree_util.tree_map(lambda x: x[0], barrs),
         ref_y, ref_c, steps,
         w_mbs=w_mbs, h_mbs=hb_mbs, chroma_qp_offset=chroma_qp_offset,
-        mc=mc, mb0=band * hb_mbs * w_mbs, ref_h_mbs=h_mbs_full)
-    # the ICI copySlice: every chip receives every band
+        mb0=band * hb_mbs * w_mbs, ref_h_mbs=h_mbs_full)
+    # copySlice: every device receives every band
     fy = jax.lax.all_gather(y, axis)        # [n_bands, Hb, W]
     fcb = jax.lax.all_gather(cb, axis)
     fcr = jax.lax.all_gather(cr, axis)
@@ -373,9 +367,7 @@ def make_sliced_decoder(mesh: Mesh, w_mbs: int, h_mbs: int, n_bands: int,
 
     fn = functools.partial(decode_picture_sliced_impl, w_mbs=w_mbs,
                            hb_mbs=hb, chroma_qp_offset=chroma_qp_offset,
-                           axis=axis, h_mbs_full=h_mbs,
-                           mc=RT.default_mc_backend(
-                               mesh.devices.flat[0]))
+                           axis=axis, h_mbs_full=h_mbs)
     sharded = shard_map(
         fn, mesh=mesh,
         in_specs=(P(axis), P(), P(), P()),
@@ -386,18 +378,18 @@ def make_sliced_decoder(mesh: Mesh, w_mbs: int, h_mbs: int, n_bands: int,
 def decode_picture_sliced2d_impl(barrs, ref_y, ref_c, steps,
                                  w_mbs, hb_mbs, chroma_qp_offset,
                                  dp_axis: str = "dp", sp_axis: str = "sp",
-                                 mc: str = "xla", h_mbs_full: int = None):
+                                 h_mbs_full: int = None):
     """shard_map body over a 2-D (dp x sp) mesh: dp shards independent
-    STREAMS (the multi-host/DCN analogue — no cross-stream comm at
-    all), sp shards each picture's MB-row bands (ICI all_gather
-    rebuilds full reference frames per stream)."""
+    STREAMS (the multi-host analogue — no cross-stream comm at all),
+    sp shards each picture's MB-row bands (an all_gather rebuilds full
+    reference frames per stream)."""
     band = jax.lax.axis_index(sp_axis)
     arrs = jax.tree_util.tree_map(lambda x: x[0, 0], barrs)
     y, cb, cr = RT.decode_picture_impl(
         arrs, ref_y[0], ref_c[0], steps,
         w_mbs=w_mbs, h_mbs=hb_mbs, chroma_qp_offset=chroma_qp_offset,
-        mc=mc, mb0=band * hb_mbs * w_mbs, ref_h_mbs=h_mbs_full)
-    # ICI copySlice within the stream; nothing crosses dp (DCN) rows
+        mb0=band * hb_mbs * w_mbs, ref_h_mbs=h_mbs_full)
+    # copySlice within the stream; nothing crosses dp rows
     fy = jax.lax.all_gather(y, sp_axis)
     fcb = jax.lax.all_gather(cb, sp_axis)
     fcr = jax.lax.all_gather(cr, sp_axis)
@@ -417,9 +409,7 @@ def make_sliced_decoder_2d(mesh: Mesh, w_mbs: int, h_mbs: int,
     fn = functools.partial(decode_picture_sliced2d_impl, w_mbs=w_mbs,
                            hb_mbs=hb, chroma_qp_offset=chroma_qp_offset,
                            dp_axis=dp_axis, sp_axis=sp_axis,
-                           h_mbs_full=h_mbs,
-                           mc=RT.default_mc_backend(
-                               mesh.devices.flat[0]))
+                           h_mbs_full=h_mbs)
     sharded = shard_map(
         fn, mesh=mesh,
         in_specs=(P(dp_axis, sp_axis), P(dp_axis), P(dp_axis), P()),
@@ -433,7 +423,6 @@ def decode_picture_sliced2d_v2_impl(bufs, ref_y, ref_c, steps,
                                     chroma_qp_offset,
                                     dp_axis: str = "dp",
                                     sp_axis: str = "sp",
-                                    mc: str = "xla",
                                     h_mbs_full: int = None):
     """shard_map body over a 2-D (dp x sp) mesh with COMPACT v2
     uploads: each dp row receives its stream's single packed buffer
@@ -460,7 +449,7 @@ def decode_picture_sliced2d_v2_impl(bufs, ref_y, ref_c, steps,
     y, cb, cr = RT.decode_picture_impl(
         arrs, ref_y[0], ref_c[0], steps,
         w_mbs=w_mbs, h_mbs=hb_mbs, chroma_qp_offset=chroma_qp_offset,
-        mc=mc, mb0=band * nb, ref_h_mbs=h_mbs_full)
+        mb0=band * nb, ref_h_mbs=h_mbs_full)
     fy = jax.lax.all_gather(y, sp_axis)
     fcb = jax.lax.all_gather(cb, sp_axis)
     fcr = jax.lax.all_gather(cr, sp_axis)
@@ -483,9 +472,7 @@ def make_sliced_decoder_2d_v2(mesh: Mesh, w_mbs: int, h_mbs: int,
                            constrained_intra=constrained_intra,
                            chroma_qp_offset=chroma_qp_offset,
                            dp_axis=dp_axis, sp_axis=sp_axis,
-                           h_mbs_full=h_mbs,
-                           mc=RT.default_mc_backend(
-                               mesh.devices.flat[0]))
+                           h_mbs_full=h_mbs)
     sharded = shard_map(
         fn, mesh=mesh,
         in_specs=(P(dp_axis), P(dp_axis), P(dp_axis), P()),
@@ -497,10 +484,16 @@ def decode_streams_sliced_dp(datas: List[bytes], mesh: Mesh,
                              n_bands: int) -> List[List[bytes]]:
     """Lockstep end-to-end decode of N same-geometry streams on a 2-D
     (dp x sp) mesh: stream i owns dp row i, its pictures band-sharded
-    over sp. The TPU analogue of the reference's multi-worker,
+    over sp. The device analogue of the reference's multi-worker,
     multi-player matrix (storyDemo.html) with sliceMode inside each
     player. Returns per-stream display-order YUV bytes; per-axis comm
-    volume comes from comm_volume_2d()."""
+    volume comes from comm_volume_2d().
+
+    Every device computation of a round (reference stacks, the sharded
+    decode, the per-stream output frames) is launched from the leader
+    thread: programs that span several devices, launched concurrently
+    from several threads, can reach the devices in different orders
+    and deadlock in their collectives."""
     import threading
 
     import broadway_tpu.core.decoder as DEC
@@ -522,8 +515,7 @@ def decode_streams_sliced_dp(datas: List[bytes], mesh: Mesh,
         def recon(self, pic):
             sps, pps = self.sps, self.pps
             w, h = sps.width_mbs, sps.height_mbs
-            ref_y, ref_c = RT.ref_stacks(self.dpb.buffer, sps.width,
-                                         sps.height)
+            refs = (list(self.dpb.buffer), sps.width, sps.height)
             res = None
             if use_v2:
                 lay = PK.get_packed_layout_v2(w, h)
@@ -532,20 +524,21 @@ def decode_streams_sliced_dp(datas: List[bytes], mesh: Mesh,
                 res = PK.pack_picture_v2(pic, lay, scratch[i])
             if res is not None:
                 # compact v2 single-buffer upload per stream
-                staging[i] = ("v2", res[0], res[1], ref_y, ref_c, w, h,
+                staging[i] = ("v2", res[0], res[1], refs, None, w, h,
                               pps.constrained_intra_pred,
                               pps.chroma_qp_index_offset)
             else:
                 barrs = band_host_arrays(pic, n_bands,
                                          pps.chroma_qp_index_offset,
                                          pps.constrained_intra_pred)
-                staging[i] = ("v1", barrs, None, ref_y, ref_c, w, h,
+                staging[i] = ("v1", barrs, None, refs, None, w, h,
                               pps.constrained_intra_pred,
                               pps.chroma_qp_index_offset)
             barrier.wait()
             if i == 0:
-                sry = jnp.stack([staging[s][3] for s in range(S)])
-                src = jnp.stack([staging[s][4] for s in range(S)])
+                stacks = [RT.ref_stacks(*staging[s][3]) for s in range(S)]
+                sry = jnp.stack([st[0] for st in stacks])
+                src = jnp.stack([st[1] for st in stacks])
                 steps = {k: jnp.asarray(v)
                          for k, v in RT.step_tables(
                              w, h // n_bands).items()}
@@ -575,10 +568,9 @@ def decode_streams_sliced_dp(datas: List[bytes], mesh: Mesh,
                     y, cb, cr = decoder_fn[key](barrs_all, sry, src,
                                                 steps)
                 for s in range(S):
-                    results[s] = (y[s], cb[s], cr[s])
+                    results[s] = RT.DeviceFrame(y[s], cb[s], cr[s])
             barrier.wait()
-            y, cb, cr = results[i]
-            return RT.TpuFrame(y, cb, cr)
+            return results[i]
         return recon
 
     outs = [None] * S
@@ -605,8 +597,8 @@ def decode_streams_sliced_dp(datas: List[bytes], mesh: Mesh,
 def comm_volume_2d(w_mbs: int, h_mbs: int, n_bands: int,
                    n_streams: int) -> dict:
     """Per-picture communication volume by mesh axis (bytes, int32
-    planes): sp carries the band all_gather (ICI); dp carries nothing
-    (streams are independent — the DCN-friendly axis)."""
+    planes): sp carries the band all_gather; dp carries nothing
+    (streams are independent — the cross-host-friendly axis)."""
     H, W = h_mbs * 16, w_mbs * 16
     plane = H * W + 2 * (H // 2) * (W // 2)
     gathered = plane * 4 * (n_bands - 1) // n_bands   # recv per chip
@@ -697,7 +689,7 @@ def decode_stream_sliced(data: bytes, mesh: Mesh, n_bands: int,
                         pps.constrained_intra_pred,
                         pps.chroma_qp_index_offset, lay, bk)
                 y, cb, cr = decoder_fn[key](dbuf, ref_y, ref_c, steps)
-            return RT.TpuFrame(y, cb, cr)
+            return RT.DeviceFrame(y, cb, cr)
         key = (w, h, cross)
         if cross:
             if key not in decoder_fn:
@@ -721,7 +713,7 @@ def decode_stream_sliced(data: bytes, mesh: Mesh, n_bands: int,
                                      pps.constrained_intra_pred)
             barrs = {k: jnp.asarray(v) for k, v in barrs.items()}
             y, cb, cr = decoder_fn[key](barrs, ref_y, ref_c, steps)
-        return RT.TpuFrame(y, cb, cr)
+        return RT.DeviceFrame(y, cb, cr)
 
     dec = DEC.Decoder(backend="cpu", recon_strategy=sliced_recon)
     outs = dec.decode_annexb(data)

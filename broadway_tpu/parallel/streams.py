@@ -1,64 +1,39 @@
-"""Multi-stream (data-parallel) decode: the TPU analogue of the
+"""Multi-stream (data-parallel) decode: the device analogue of the
 reference's multi-instance / multi-player parallelism
 (Decoder/src/TestBenchMultipleInstance.c, Player/storyDemo.html 6-player
 matrix — SURVEY.md §2.5 P3).
 
 A batch of per-picture tensor bundles (one per stream, same resolution)
 runs through the jitted pixel pipeline under vmap; on a device mesh the
-batch axis is sharded over "dp" so each chip decodes its share of streams.
+batch axis is sharded over "dp" so each device decodes its share of
+streams.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..core.recon_tpu import decode_picture_impl, default_mc_backend
+from ..core.recon_tpu import decode_picture_impl
 
 
 def _batched_impl(arrs, ref_y, ref_c, steps, w_mbs, h_mbs,
-                  chroma_qp_offset, mc="xla"):
-    """Batched decode [B, ...]. The Pallas MC kernel doesn't vmap, so
-    the batch is flattened into the MB axis for stage 2 (ref slot
-    indices get a per-stream offset) and the rest of the pipeline runs
-    under vmap."""
-    B = ref_y.shape[0]
-    R = ref_y.shape[1]
-
-    if mc == "pallas":
-        # TPU path: one impl call, streams stacked along the MB /
-        # diagonal axes (the Pallas kernels' masks make cross-stream
-        # neighbour edges no-ops, exactly like picture borders).
-        flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in
-                arrs.items()}
-        return decode_picture_impl(
-            flat, ref_y.reshape((-1,) + ref_y.shape[2:]),
-            ref_c.reshape((-1,) + ref_c.shape[2:]), steps,
-            w_mbs=w_mbs, h_mbs=h_mbs,
-            chroma_qp_offset=chroma_qp_offset,
-            mc="pallas", wf="pallas", batch=B)
-
+                  chroma_qp_offset):
+    """Batched decode [B, ...]: the single-picture pipeline under vmap."""
     def one(a, ry, rc):
         return decode_picture_impl(a, ry, rc, steps, w_mbs=w_mbs,
                                    h_mbs=h_mbs,
-                                   chroma_qp_offset=chroma_qp_offset,
-                                   mc=mc)
+                                   chroma_qp_offset=chroma_qp_offset)
 
     return jax.vmap(one, in_axes=(0, 0, 0))(arrs, ref_y, ref_c)
 
 
 decode_pictures_batch = functools.partial(
-    jax.jit, static_argnames=("w_mbs", "h_mbs", "chroma_qp_offset", "mc"))(
+    jax.jit, static_argnames=("w_mbs", "h_mbs", "chroma_qp_offset"))(
         _batched_impl)
-
-
-# process-wide working device-batch chunk width per (w, h, B) — see
-# the compile-failure fallback in decode_streams_lockstep
-_SUB_WIDTH: Dict[tuple, int] = {}
 
 
 class _LockstepSync:
@@ -124,15 +99,15 @@ class _LockstepSync:
             self._cv.notify_all()
 
 
-def decode_streams_lockstep(datas, mc: str = None,
-                            parallel_slices: int = 4,
+def decode_streams_lockstep(datas, parallel_slices: int = 4,
                             fetch: bool = True):
     """End-to-end lockstep decode of N same-geometry error-free
-    streams on ONE chip: each picture round batches the active
-    streams' compact uploads through one jitted pipeline pass with
-    streams on the wavefront LANE axis — the single-chip
-    multi-instance mode (reference: TestBenchMultipleInstance.c
-    round-robin instances, storyDemo.html 6 players). Returns
+    streams on ONE device: each picture round batches the active
+    streams' compact uploads through one jitted pipeline pass vmapped
+    over streams (each wavefront diagonal step covers every stream) —
+    the single-device multi-instance mode (reference:
+    TestBenchMultipleInstance.c round-robin instances, storyDemo.html
+    6 players). Returns
     per-stream display-order frames (bytes when fetch=True).
 
     Streams must share a resolution; picture COUNTS may differ (a
@@ -140,36 +115,22 @@ def decode_streams_lockstep(datas, mc: str = None,
     smaller batch). A picture the v2 packer declines falls back to a
     per-stream pipeline call for that round instead of aborting.
 
-    Scaling (measured, v5e, 1080p): the batched device step cost is
-    near-linear in B (26/49/87 ms at B=1/2/4) because the lane-axis
-    work dominates the per-step fixed cost at LS=72, so B=2 aggregate
-    ~= single-stream throughput; batching pays by amortizing the HOST
-    round cost (parse/pack/upload), which matters from B>=4. For two
-    streams, lockstep and sequential decode are equivalent in
-    aggregate — prefer lockstep only when per-stream latency jitter
-    is acceptable."""
+    BW_LOCKSTEP_SUB=k runs each round's device batch as chunks of at
+    most k streams (a bound on the compiled program's width)."""
     import numpy as np
 
     import broadway_tpu.core.decoder as DEC
     from ..core import packed as PK
     from ..core import recon_tpu as RT
-    from ..ops.tpu import mc_pallas as K_mcp
+    from ..ops.tpu import inter as K_mc
 
     B = len(datas)
     sync = _LockstepSync(B)
     staging = [None] * B
     results = [None] * B
     state = {}
-    if mc is None:
-        import jax
-        # LANE-axis batching needs the kernel path; interpret mode is
-        # the CPU-correctness twin
-        mc = "pallas" if jax.default_backend() == "tpu" \
-            else "pallas_interp"
 
     def _leader_round(w, h, sps):
-        import jax
-        import jax.numpy as jnp
         lay = PK.get_packed_layout_v2(w, h)
         act = [i for i in range(B) if staging[i] is not None]
         packed = [i for i in act if staging[i][0] == "v2"]
@@ -177,8 +138,8 @@ def decode_streams_lockstep(datas, mc: str = None,
         Rmax = max(s[6] for s in (staging[i] for i in act))
         key = (w, h, Rmax)
         if state.get("key") != key:
-            hy, wy = K_mcp.luma_ext_dims(sps.width, sps.height)
-            hc, wc = K_mcp.chroma_ext_dims(sps.width, sps.height)
+            hy, wy = K_mc.luma_ext_dims(sps.width, sps.height)
+            hc, wc = K_mc.chroma_ext_dims(sps.width, sps.height)
             state["key"] = key
             state["sy"] = jnp.zeros((B, Rmax, hy, wy), jnp.int32)
             state["sc"] = jnp.zeros((B, Rmax, hc, wc), jnp.int32)
@@ -196,8 +157,7 @@ def decode_streams_lockstep(datas, mc: str = None,
             y, cb, cr, yuv, ry, rc = RT.decode_pictures_packed_batch(
                 jax.device_put(bufs), ry, rc, slots, state["steps"],
                 lay=lay, bk=BK, constrained_intra=sp[0][7],
-                chroma_qp_offset=sp[0][8], mc=mc, wf=mc,
-                batch=len(sub))
+                chroma_qp_offset=sp[0][8])
             if full:
                 state["sy"], state["sc"] = ry, rc
             else:
@@ -205,55 +165,29 @@ def decode_streams_lockstep(datas, mc: str = None,
                 state["sy"] = state["sy"].at[ix].set(ry)
                 state["sc"] = state["sc"].at[ix].set(rc)
             for b, i in enumerate(sub):
-                results[i] = RT.TpuFrame(y[b], cb[b], cr[b],
-                                         pad=False, yuv_u8=yuv[b])
+                results[i] = RT.DeviceFrame(y[b], cb[b], cr[b],
+                                            pad=False, yuv_u8=yuv[b])
 
         if packed:
-            # Wide batches can exceed the XLA compile service's memory
-            # (observed: the B=8 1080p program crashes the compile
-            # helper on this rig while B<=4 compiles fine), so the
-            # device batch is chunked; on a failed compile the chunk
-            # width halves, and the working width is remembered
-            # process-wide so later calls skip the doomed compile.
             import os as _os
-            skey = (w, h, B)
-            cap = _SUB_WIDTH.get(skey) or int(
-                _os.environ.get("BW_LOCKSTEP_SUB", "0")) or len(packed)
-            sub = min(cap, len(packed))
-            first = sub
-            while True:
-                try:
-                    for c0 in range(0, len(packed), sub):
-                        run_packed(packed[c0:c0 + sub])
-                    if sub < first:
-                        # remember the cap ONLY when a compile failure
-                        # forced the reduction — a transiently small
-                        # packed list must not become a permanent cap
-                        _SUB_WIDTH[skey] = sub
-                    break
-                except jax.errors.JaxRuntimeError:
-                    if sub <= 1 or state["sy"].is_deleted():
-                        # a runtime (post-donation) failure cannot be
-                        # retried — the ref stacks were consumed
-                        raise
-                    sub = (sub + 1) // 2
+            sub = int(_os.environ.get("BW_LOCKSTEP_SUB", "0")) \
+                or len(packed)
+            for c0 in range(0, len(packed), sub):
+                run_packed(packed[c0:c0 + sub])
         for i in raw:
             # per-stream fallback: pictures the v2 packer declines
             # (too many slices / over-dense) run through the plain
             # pipeline against this stream's slice of the ref stacks
-            import jax.numpy as jnp
             _, arrs, slot, R, ci, co = staging[i][:6]
             arrs = {k: jnp.asarray(v) for k, v in arrs.items()}
             y, cb, cr = RT.decode_picture(
                 arrs, state["sy"][i], state["sc"][i], state["steps"],
-                w_mbs=w, h_mbs=h, chroma_qp_offset=co,
-                mc="pallas" if mc == "pallas" else "xla",
-                wf="pallas" if mc == "pallas" else "xla")
+                w_mbs=w, h_mbs=h, chroma_qp_offset=co)
             sy, sc = RT.update_stack_slot(
                 state["sy"][i], state["sc"][i], slot, y, cb, cr)
             state["sy"] = state["sy"].at[i].set(sy)
             state["sc"] = state["sc"].at[i].set(sc)
-            results[i] = RT.TpuFrame(y, cb, cr, pad=False)
+            results[i] = RT.DeviceFrame(y, cb, cr, pad=False)
 
     def make_recon(i):
         scratch = {}
@@ -303,7 +237,6 @@ def decode_streams_lockstep(datas, mc: str = None,
                     o.frame.start_fetch()
                 outs[i] = [o.frame.tobytes() for o in got]
             else:
-                import jax
                 jax.block_until_ready([o.frame.y for o in got])
                 outs[i] = got
         except Exception as e:

@@ -58,7 +58,7 @@ class Player:
     """Decode + render pipeline.
 
     options (mirror Player.js:46-98):
-      backend: "cpu" | "tpu"  (the useWorker analogue: device offload)
+      backend: "cpu" | "device"  (the useWorker analogue: device offload)
       render:  "yuv" (no conversion), "rgb_int" (asm.js-math converter),
                "rec601" / "rec709" (WebGL-shader-matrix path)
       on_picture: callback(frame_dict) per display-order picture

@@ -1,4 +1,4 @@
-"""YUV420 -> RGB conversion — TPU analogue of the reference's two
+"""YUV420 -> RGB conversion — device analogue of the reference's two
 converters:
 
 - `yuv420_to_rgba_int`: bit-exact mirror of the hand-written asm.js
@@ -73,5 +73,8 @@ def _matrix_convert(y, cb, cr, m):
     vf = _upsample_chroma(cr.astype(jnp.float32)) / 255.0
     ones = jnp.ones_like(yf)
     yuv1 = jnp.stack([yf, uf, vf, ones], axis=-1)       # [H,W,4]
-    rgb = jnp.einsum("hwc,rc->hwr", yuv1, m)
+    # HIGHEST: a float32 contraction may otherwise run in TF32 (about
+    # three decimal digits) on GPUs, enough to move the rounded u8
+    rgb = jnp.einsum("hwc,rc->hwr", yuv1, m,
+                     precision=jax.lax.Precision.HIGHEST)
     return jnp.clip(rgb * 255.0 + 0.5, 0, 255).astype(jnp.uint8)

@@ -1,12 +1,11 @@
 """Persistent XLA compile cache setup.
 
-1080p pipeline compiles take minutes (the Pallas wavefront/MC kernels
-go through the remote Mosaic compiler), so every entry point enables
-the on-disk cache. The JAX_COMPILATION_CACHE_DIR environment variable
-is NOT reliably picked up by the jax config default in this
-environment; only an explicit `jax.config.update` is (verified: env
-setdefault left jax.config.jax_compilation_cache_dir = None and no
-cache writes happened; config.update produces cache hits).
+1080p pipeline compiles are slow, so every device entry point enables
+the on-disk cache: in JAX_COMPILATION_CACHE_DIR when that is set, else
+at the fixed path build/jaxcache inside the checkout (a fixed path
+keeps cache keys stable from run to run). The setting is applied with
+an explicit `jax.config.update`, which takes effect even when jax was
+imported before the environment variable was read.
 """
 
 from __future__ import annotations

@@ -10,22 +10,34 @@ ORACLE_DIR = os.path.join(REPO, "build", "oracle")
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
-# Multi-chip sharding tests run on a virtual CPU mesh; the real-TPU bench
-# path sets its own flags. Must be set before jax import anywhere.
+# Tests run on the CPU unless JAX_PLATFORMS says otherwise (the gpu-marked
+# tests: JAX_PLATFORMS=cuda python -m pytest -m gpu tests/). Multi-device
+# sharding tests use a virtual CPU mesh. Must be set before jax import
+# anywhere.
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(REPO, "build", "jaxcache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 os.environ.setdefault(
     "XLA_FLAGS",
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8",
 )
 
-try:    # env-var cache config is unreliable here; set it explicitly
-    from broadway_tpu.utils.cache import ensure_compile_cache
-    ensure_compile_cache()
-except Exception:
-    pass
+from broadway_tpu.utils.cache import ensure_compile_cache  # noqa: E402
+
+ensure_compile_cache()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a GPU (the `gpu` fixture skips elsewhere)")
+
+
+@pytest.fixture
+def gpu():
+    """The first JAX device, when it is a GPU; skips otherwise."""
+    import jax
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        pytest.skip(f"needs a GPU; JAX runs on {dev.platform}")
+    return dev
 
 
 def _ensure_oracle():

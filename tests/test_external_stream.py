@@ -30,11 +30,11 @@ def test_x264_natural_cpu(tmp_path, oracle_dectest):
 
 
 def test_x264_natural_tpu(tmp_path, oracle_dectest):
-    """Same stream through the TPU packed fast path (multi-slice,
+    """Same stream through the device packed fast path (multi-slice,
     deblock idc 0, multi-ref — x264 defaults)."""
     data = ext_encoder.encode_natural(176, 144, 8, seed=4, slices=2,
                                       keyint=8)
-    _golden(tmp_path, oracle_dectest, data, "tpu")
+    _golden(tmp_path, oracle_dectest, data, "device")
 
 
 def test_x264_through_mp4_player(tmp_path, oracle_dectest):

@@ -1,4 +1,4 @@
-"""End-to-end golden tests: TPU-build decoder (CPU backend) vs the
+"""End-to-end golden tests: this decoder (CPU backend) vs the
 reference decoder on generated streams (bit-exact YUV)."""
 
 import os

@@ -16,7 +16,7 @@ def _cross(data, g=4):
     want = [o.frame.tobytes()
             for o in Decoder(backend="cpu").decode_annexb(data)]
     got = [o.frame.tobytes()
-           for o in Decoder(backend="tpu",
+           for o in Decoder(backend="device",
                             group_frames=g).decode_annexb(data)]
     assert got == want
 

@@ -108,7 +108,8 @@ def test_unpack_v2_matches_host_arrays(name):
 
 @pytest.mark.skipif(not nat.pack_available(), reason="native packer absent")
 def test_packed_e2e_golden(tmp_path, oracle_dectest):
-    """End-to-end TPU-backend decode through the packed path vs oracle."""
+    """End-to-end device-backend decode through the packed path vs
+    oracle."""
     import jax
 
     from conftest import run_oracle
@@ -120,6 +121,6 @@ def test_packed_e2e_golden(tmp_path, oracle_dectest):
     sp.write_bytes(data)
     ref, _ = run_oracle(oracle_dectest, str(sp), str(tmp_path / "ref.yuv"))
 
-    d = Decoder(backend="tpu")
+    d = Decoder(backend="device")
     out = b"".join(o.frame.tobytes() for o in d.decode_annexb(data))
     assert out == ref

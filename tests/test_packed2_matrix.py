@@ -1,6 +1,6 @@
-"""Round-4 regression matrix for the compact-v2 fused fast path.
+"""Regression matrix for the compact-v2 fused fast path.
 
-Root cause being pinned (round-3 VERDICT weak #1): when the v2 unpack's
+Root cause being pinned: when the v2 unpack's
 bitcast/scatter chains fused INTO the deblock boundary-strength compare
 chain inside decode_picture_packed2's single jit, XLA miscompiled the
 internal copy of bs_left (one MB's left-edge strengths dropped to 0 —
@@ -8,9 +8,9 @@ wrong chroma pixels on legal streams) even though the identical values
 exported as jit outputs were bit-correct. Fixed by an
 optimization_barrier between unpack and consumers (core/recon_tpu.py).
 
-These tests run the DEFAULT path (v2+Pallas on TPU) against both the
-v1 packed path and the CPU oracle, end-to-end over the matrix the
-round-3 coverage missed: deblock offsets x idc x FMO x multi-ref.
+These tests run the DEFAULT device path (packed v2) against both the
+v1 packed path and the CPU oracle, end-to-end over the matrix:
+deblock offsets x idc x FMO x multi-ref.
 Oracle semantics: /root/reference/Decoder/src/h264bsd_deblocking.c:574
 (bS + threshold derivation 636-1530) via the golden-validated CPU
 backend.
@@ -42,8 +42,8 @@ def _decode(data, backend, pack_v1=False):
 
 def _cross(data):
     cpu = _decode(data, "cpu")
-    v2 = _decode(data, "tpu")
-    v1 = _decode(data, "tpu", pack_v1=True)
+    v2 = _decode(data, "device")
+    v1 = _decode(data, "device", pack_v1=True)
     assert len(cpu) == len(v2) == len(v1)
     for i, (a, b, c) in enumerate(zip(cpu, v2, v1)):
         assert b == c, f"frame {i}: packed-v2 differs from packed-v1"

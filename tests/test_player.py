@@ -1,6 +1,7 @@
 """Player layer: MP4 demux, YUV->RGB converters, player orchestration."""
 
 import numpy as np
+import pytest
 
 import streams
 import mp4mux
@@ -50,6 +51,26 @@ def test_yuv2rgb_int_matches_reference_math():
                              >> 10))
             b = min(255, max(0, (a0 + 2066 * (U - 128)) >> 10))
             assert tuple(got[yy, xx]) == (r, g, b, 255), (yy, xx)
+
+
+@pytest.mark.parametrize("name", ["rec601", "rec709"])
+def test_yuv2rgb_matrix_matches_float64(name):
+    """The float shader-matrix path vs a NumPy float64 conversion: at
+    most 1 LSB apart (the final rounding to u8). Catches a reduced-
+    precision (TF32) contraction."""
+    from broadway_tpu.player import yuv2rgb as Y
+    rng = np.random.RandomState(4)
+    y = rng.randint(0, 256, (32, 48)).astype(np.uint8)
+    cb = rng.randint(0, 256, (16, 24)).astype(np.uint8)
+    cr = rng.randint(0, 256, (16, 24)).astype(np.uint8)
+    got = np.asarray(getattr(Y, "yuv_to_rgb_" + name)(y, cb, cr))
+    m = getattr(Y, name.upper()).astype(np.float64)
+    up = lambda c: np.repeat(np.repeat(c, 2, 0), 2, 1).astype(np.float64)
+    yuv1 = np.stack([y / 255.0, up(cb) / 255.0, up(cr) / 255.0,
+                     np.ones(y.shape)], axis=-1)
+    want = np.clip(np.floor(yuv1 @ m.T * 255.0 + 0.5), 0, 255)
+    assert got.shape == y.shape + (3,) and got.dtype == np.uint8
+    assert np.abs(got.astype(np.int64) - want.astype(np.int64)).max() <= 1
 
 
 def test_fps_stats():

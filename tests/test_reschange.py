@@ -5,7 +5,7 @@ engine's SPS re-activation h264bsd_storage.c:298).
 
 The reference decoder (oracle binary) decodes a stream whose SPS
 changes dimensions at an IDR and emits every picture of both
-sequences; both our backends must match it byte-for-byte — on the TPU
+sequences; both our backends must match it byte-for-byte — on the device
 path this exercises re-activation through the cached packed layouts
 and persistent device DPB stacks (core/decoder.py _ensure_stacks
 keying)."""
@@ -35,7 +35,7 @@ def _res_change_stream():
     return a + b
 
 
-@pytest.mark.parametrize("backend", ["cpu", "tpu"])
+@pytest.mark.parametrize("backend", ["cpu", "device"])
 def test_resolution_change_at_idr(backend, oracle_dectest, tmp_path):
     data = _res_change_stream()
     ref = _oracle(tmp_path, oracle_dectest, data, "rc")
@@ -47,7 +47,7 @@ def test_resolution_change_at_idr(backend, oracle_dectest, tmp_path):
     assert got == ref
 
 
-@pytest.mark.parametrize("backend", ["cpu", "tpu"])
+@pytest.mark.parametrize("backend", ["cpu", "device"])
 def test_eos_drain_reordered(backend, oracle_dectest, tmp_path):
     """Pictures buffered for display reordering must be emitted by the
     EOS flush (h264bsd_decoder.c:750 flushBuffer -> flushDpb), in the
@@ -75,7 +75,7 @@ def test_resolution_change_then_eos_drain(oracle_dectest, tmp_path):
                                       height_mbs=4)
     data = a + b
     ref = _oracle(tmp_path, oracle_dectest, data, "rcdrain")
-    for backend in ("cpu", "tpu"):
+    for backend in ("cpu", "device"):
         outs = Decoder(backend=backend).decode_annexb(data)
         got = b"".join(o.frame.tobytes() for o in outs)
         assert got == ref, backend

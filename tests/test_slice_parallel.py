@@ -66,3 +66,24 @@ def test_sliced_decode_unaligned_falls_back():
     mesh = Mesh(np.array(cpus[:4]), ("sp",))
     got = decode_stream_sliced(data, mesh, n_bands=4)
     assert got == want
+
+
+def test_sliced_dp_streams_match_single():
+    """4 streams, one per dp row of a (4 x 1) mesh: every multi-device
+    launch of a round comes from the leader thread (concurrent launches
+    from the per-stream threads deadlocked in the collectives)."""
+    import jax
+    cpus = jax.devices("cpu")
+    if len(cpus) < 4:
+        pytest.skip("need 4 virtual cpu devices")
+    from jax.sharding import Mesh
+    from broadway_tpu.core.decoder import Decoder
+    from broadway_tpu.parallel.slices import decode_streams_sliced_dp
+
+    datas = [streams.inter_stream(width_mbs=4, height_mbs=3, n_frames=3,
+                                  seed=710 + s, deblock=True,
+                                  mvd_range=30)[0] for s in range(4)]
+    wants = [[o.frame.tobytes() for o in Decoder().decode_annexb(d)]
+             for d in datas]
+    mesh = Mesh(np.array(cpus[:4]).reshape(4, 1), ("dp", "sp"))
+    assert decode_streams_sliced_dp(datas, mesh, n_bands=1) == wants

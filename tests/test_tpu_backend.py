@@ -1,5 +1,6 @@
-"""TPU (jitted JAX) backend vs CPU (NumPy oracle) backend on every stream
-scenario — the CPU backend itself is golden-validated vs the reference."""
+"""Device (jitted JAX) backend vs CPU (NumPy oracle) backend on every
+stream scenario — the CPU backend itself is golden-validated vs the
+reference."""
 
 import pytest
 
@@ -9,15 +10,15 @@ from broadway_tpu.core.decoder import Decoder
 
 def cross_check(data):
     cpu = Decoder(backend="cpu").decode_annexb(data)
-    tpu = Decoder(backend="tpu").decode_annexb(data)
-    assert len(cpu) == len(tpu)
-    for i, (a, b) in enumerate(zip(cpu, tpu)):
+    dev = Decoder(backend="device").decode_annexb(data)
+    assert len(cpu) == len(dev)
+    for i, (a, b) in enumerate(zip(cpu, dev)):
         ba, bb = a.frame.tobytes(), b.frame.tobytes()
         if ba != bb:
             off = next(j for j in range(len(ba)) if ba[j] != bb[j])
             raise AssertionError(
                 f"frame {i} differs at byte {off}: cpu={ba[off]} "
-                f"tpu={bb[off]} (y plane {a.width}x{a.height})")
+                f"device={bb[off]} (y plane {a.width}x{a.height})")
 
 
 def test_tpu_ipcm():
@@ -44,10 +45,9 @@ def test_tpu_inter_multi_ref():
 
 
 def test_tpu_inter_wild_mv():
-    # Round-4 regression (VERDICT r4 weak #1): uniform MVs whose reference
-    # windows clamp at the picture edge must not take the contiguous-cut
-    # mode-0 MC fast path.  mvd_range=400 (quarter-pel) walks MVs far
-    # outside the 176x112 picture.  Exact judge repro geometry.
+    # uniform MVs whose reference windows clamp at the picture edge
+    # (mvd_range=400 quarter-pel walks MVs far outside the 176x112
+    # picture): the padded-plane clip must reproduce FillBlock exactly
     cross_check(streams.inter_stream(width_mbs=11, height_mbs=7,
                                      n_frames=6, seed=20260821,
                                      deblock=True, mvd_range=400,
@@ -64,9 +64,8 @@ def test_tpu_inter_wild_mv_small():
 
 def test_tpu_4k_shape():
     # 16:9 picture with ODD MB height (the 4K 240x135 grid's shape
-    # class: LS sublane rounding over an odd-height wavefront).  The
-    # full-size 4K stream is exercised by bench.py (fps_4k_e2e) and was
-    # verified bit-exact vs the oracle at 240x135 on the chip.
+    # class: an odd-height wavefront). The full-size 4K stream is
+    # checked by chip_smoke.py on the GPU.
     cross_check(streams.inter_stream(width_mbs=16, height_mbs=9,
                                      n_frames=4, seed=819,
                                      deblock=True, mvd_range=120)[0])

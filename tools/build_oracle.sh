@@ -1,6 +1,6 @@
 #!/bin/bash
 # Build the reference C decoder (h264bsd / SoftAVC) natively as the
-# bit-exactness oracle for the TPU build. Sources are read from the
+# bit-exactness oracle for this decoder. Sources are read from the
 # read-only reference mount; objects/binaries land in build/oracle
 # (gitignored). The resulting `dectest` mirrors Decoder/src/DecTestBench.c
 # golden-output behavior (writes out_wWhH.yuv per display-order frame).

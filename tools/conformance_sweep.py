@@ -5,7 +5,7 @@ deblock offsets, QP extremes), each decoded by the reference C
 decoder (build/oracle/dectest) and by our CLI on the requested
 backend, outputs byte-compared. Exit 0 = every stream byte-identical.
 
-Usage: conformance_sweep.py [-B tpu|cpu] [-N count] [--seed S]
+Usage: conformance_sweep.py [-B device|cpu] [-N count] [--seed S]
 """
 
 import os
@@ -63,7 +63,7 @@ def gen_streams(rng, count):
 
 def main():
     import random
-    backend = "tpu"
+    backend = "device"
     count = 12
     seed = 20260821
     args = sys.argv[1:]

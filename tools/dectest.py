@@ -13,7 +13,7 @@ Decoder/src/DecTestBench.c (golden YUV writer):
   -R       disable output reordering
   -T       API-call trace to dec_api.trc (DecTestBench.c:115 / the
            H264SwDecTrace example sink, Broadway.c:755-772)
-  -B       backend: cpu (default) or tpu
+  -B       backend: cpu (default) or device
 """
 
 import os

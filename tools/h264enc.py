@@ -6,7 +6,7 @@ valid streams exercising specific decoder paths (I_PCM, intra prediction,
 CAVLC residuals, quarter-pel MC, multi-slice, FMO, ...). The reference C
 decoder (built by tools/build_oracle.sh, mirroring
 /root/reference/Decoder/src/DecTestBench.c) defines the golden YUV output
-for every generated stream; the TPU decoder must match it bit-exactly.
+for every generated stream; the decoder must match it bit-exactly.
 
 The reference repository ships no clips (Player/*.mp4 are absent large
 blobs), and no ffmpeg/x264 exists in this image, so streams are produced

@@ -1,6 +1,6 @@
 /* Oracle harness: drive internal functions of the reference decoder
  * (built from /root/reference/Decoder/src, see tools/build_oracle.sh)
- * so unit tests can validate the TPU build's entropy tables and parsers
+ * so unit tests can validate this decoder's entropy tables and parsers
  * block-by-block instead of only end-to-end.
  *
  * Usage (one request per line on stdin, answers on stdout):

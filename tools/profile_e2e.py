@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile the end-to-end TPU decode path: parse / upload / compute /
+"""Profile the end-to-end device decode path: parse / upload / compute /
 readback breakdown per frame. Round-2 diagnostic tool."""
 
 import os
@@ -9,9 +9,6 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(REPO, "build", "jaxcache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 
 def main():
@@ -28,7 +25,7 @@ def main():
 
     # warm (compile)
     t0 = time.perf_counter()
-    d = Decoder(backend="tpu", parallel_slices=8)
+    d = Decoder(backend="device", parallel_slices=8)
     outs = d.decode_annexb(data)
     for o in outs:
         o.frame.tobytes()
@@ -37,7 +34,7 @@ def main():
 
     # warm run, end-to-end
     t0 = time.perf_counter()
-    d = Decoder(backend="tpu", parallel_slices=8)
+    d = Decoder(backend="device", parallel_slices=8)
     outs = d.decode_annexb(data)
     nb = 0
     for o in outs:

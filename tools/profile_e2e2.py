@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Round-4 e2e profiler: phase breakdown on the REALISTIC bench stream.
 
-Instruments the decoder's per-picture TPU path via monkeypatched
+Instruments the decoder's per-picture device path via monkeypatched
 timers: front-end parse, v2 pack, device_put, jit dispatch, and the
 final device drain. Separates host-serial cost (what bounds e2e fps
 when compute overlaps) from device compute.
@@ -31,7 +31,7 @@ def main():
     print(f"stream: {len(data)} bytes, {n_frames} frames", flush=True)
 
     # warm / compile
-    d = Decoder(backend="tpu", parallel_slices=8)
+    d = Decoder(backend="device", parallel_slices=8)
     outs = d.decode_annexb(data)
     for o in outs:
         jax.block_until_ready(o.frame.y)
@@ -67,7 +67,7 @@ def main():
     RT.decode_picture_packed2 = tjit
 
     t0 = time.perf_counter()
-    d = Decoder(backend="tpu", parallel_slices=8)
+    d = Decoder(backend="device", parallel_slices=8)
     outs = d.decode_annexb(data)
     t_host = time.perf_counter() - t0          # host-side loop done
     for o in outs:
@@ -93,7 +93,7 @@ def main():
 
     # device-compute-only: block after every frame
     t0 = time.perf_counter()
-    d = Decoder(backend="tpu", parallel_slices=8)
+    d = Decoder(backend="device", parallel_slices=8)
     outs = d.decode_annexb(data)
     for o in outs:
         jax.block_until_ready(o.frame.y)

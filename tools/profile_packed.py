@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Per-phase timing of the packed TPU fast path (round-2 diagnostic).
+"""Per-phase timing of the packed (v1) device fast path.
 Single process; reuses one Decoder so jit compiles once."""
 
 import os
@@ -29,7 +29,7 @@ def main():
     counts = {"frames": 0}
     kbs = []
 
-    orig = DEC.Decoder._reconstruct_tpu
+    orig = DEC.Decoder._reconstruct_device
 
     def timed(self, pic):
         import jax.numpy as jnp
@@ -41,7 +41,6 @@ def main():
             self._steps = {k: jnp.asarray(v)
                            for k, v in RT.step_tables(w, h).items()}
             self._steps_key = key
-        be = RT.default_mc_backend()
         lay = PK.get_packed_layout(w, h)
         if getattr(self, "_pack_scratch", None) is None:
             self._pack_scratch = PK.PackScratch(lay)
@@ -58,19 +57,18 @@ def main():
                 dbuf, self._stack_y, self._stack_c, slot, self._steps,
                 lay=lay, kb=kb,
                 constrained_intra=pps.constrained_intra_pred,
-                chroma_qp_offset=pps.chroma_qp_index_offset,
-                mc=be, wf=be)
+                chroma_qp_offset=pps.chroma_qp_index_offset)
         t4 = time.perf_counter()
         t["pack"] += t2 - t1
         t["upload"] += t3 - t2
         t["dispatch"] += t4 - t3
         counts["frames"] += 1
-        return RT.TpuFrame(y, cb, cr, pad=False)
+        return RT.DeviceFrame(y, cb, cr, pad=False)
 
-    DEC.Decoder._reconstruct_tpu = timed
+    DEC.Decoder._reconstruct_device = timed
     try:
         # cold
-        d = DEC.Decoder(backend="tpu")
+        d = DEC.Decoder(backend="device")
         t0 = time.perf_counter()
         outs = d.decode_annexb(data)
         for o in outs:
@@ -80,7 +78,7 @@ def main():
         for k in t:
             t[k] = 0.0
         counts["frames"] = 0
-        d = DEC.Decoder(backend="tpu")
+        d = DEC.Decoder(backend="device")
         t0 = time.perf_counter()
         outs = d.decode_annexb(data)
         t_decode = time.perf_counter() - t0
@@ -97,7 +95,7 @@ def main():
         print(f"  parse+etc {other * 1e3:7.1f} ms/frame", flush=True)
         print(f"  kb buckets: {sorted(set(kbs))}", flush=True)
     finally:
-        DEC.Decoder._reconstruct_tpu = orig
+        DEC.Decoder._reconstruct_device = orig
 
 
 if __name__ == "__main__":

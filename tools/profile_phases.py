@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Per-phase timing of the TPU decode path (round-2 diagnostic)."""
+"""Per-phase timing of the device decode path (unpacked upload)."""
 
 import os
 import sys
@@ -8,9 +8,6 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(REPO, "build", "jaxcache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 
 def main():
@@ -20,6 +17,8 @@ def main():
     from bench_common import bench_stream
     import broadway_tpu.core.decoder as DEC
     from broadway_tpu.core import recon_tpu as RT
+    from broadway_tpu.utils.cache import ensure_compile_cache
+    ensure_compile_cache()
 
     n_frames = 8
     w_mbs, h_mbs = 120, 68
@@ -34,7 +33,7 @@ def main():
         pics.append((pic, dec.pps))
         return DEC.SKIP_RECON
 
-    d = DEC.Decoder(backend="tpu", parallel_slices=8,
+    d = DEC.Decoder(backend="device", parallel_slices=8,
                     recon_strategy=collect)
     t0 = time.perf_counter()
     d.decode_annexb(data)
@@ -80,16 +79,13 @@ def main():
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
 
     # ---- phase 4: ref_stacks ----
-    from broadway_tpu.ops.tpu import mc_pallas as K_mcp
     W, H = w_mbs * 16, h_mbs * 16
-    hy, wy = K_mcp.luma_ext_dims(W, H)
-    hc, wc = K_mcp.chroma_ext_dims(W, H)
     n_slots = 3
     frames = []
     for i in range(n_slots):
         y = jnp.zeros((H, W), jnp.int32)
-        frames.append(RT.TpuFrame(y, jnp.zeros((H // 2, W // 2), jnp.int32),
-                                  jnp.zeros((H // 2, W // 2), jnp.int32)))
+        c = jnp.zeros((H // 2, W // 2), jnp.int32)
+        frames.append(RT.DeviceFrame(y, c, c))
 
     class P:
         pass
@@ -111,24 +107,21 @@ def main():
     # ---- phase 5: compute (steady state, inputs on device) ----
     steps = {k: jnp.asarray(v) for k, v in RT.step_tables(w_mbs,
                                                           h_mbs).items()}
-    mc = RT.default_mc_backend()
     out = RT.decode_picture(dev, ry, rc, steps, w_mbs=w_mbs, h_mbs=h_mbs,
-                            chroma_qp_offset=pps.chroma_qp_index_offset,
-                            mc=mc, wf=mc)
+                            chroma_qp_offset=pps.chroma_qp_index_offset)
     jax.block_until_ready(out)
     t0 = time.perf_counter()
     for _ in range(8):
         out = RT.decode_picture(dev, ry, rc, steps, w_mbs=w_mbs,
                                 h_mbs=h_mbs,
-                                chroma_qp_offset=pps.chroma_qp_index_offset,
-                                mc=mc, wf=mc)
+                                chroma_qp_offset=pps.chroma_qp_index_offset)
     jax.block_until_ready(out)
     t_comp = (time.perf_counter() - t0) / 8
     print(f"compute: {t_comp * 1e3:.1f} ms/frame", flush=True)
 
-    # ---- phase 6: TpuFrame ctor (pad) + readback ----
+    # ---- phase 6: DeviceFrame ctor (pad) + readback ----
     t0 = time.perf_counter()
-    fr = RT.TpuFrame(out[0], out[1], out[2])
+    fr = RT.DeviceFrame(out[0], out[1], out[2])
     jax.block_until_ready((fr.y_pad, fr.c_pad))
     print(f"pad ref planes: {(time.perf_counter() - t0) * 1e3:.1f} ms",
           flush=True)

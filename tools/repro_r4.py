@@ -1,7 +1,7 @@
 """Round-4 repro: v2+Pallas fused-jit miscompute (VERDICT r3 weak #1).
 
 Decodes the failing stream (multislice idc=0, alpha_off=2, beta_off=-2)
-through the default TPU path and diffs vs the CPU oracle, printing
+through the device path and diffs vs the CPU oracle, printing
 per-frame / per-plane first-diff info. Exit 0 = bit-exact.
 """
 import sys
@@ -20,9 +20,9 @@ def main():
                                      seed=815, deblock_idc=0,
                                      alpha_off=2, beta_off=-2)[0]
     cpu = Decoder(backend="cpu").decode_annexb(data)
-    tpu = Decoder(backend="tpu").decode_annexb(data)
+    dev = Decoder(backend="device").decode_annexb(data)
     bad = 0
-    for i, (a, b) in enumerate(zip(cpu, tpu)):
+    for i, (a, b) in enumerate(zip(cpu, dev)):
         w, h = a.width, a.height
         ya = np.frombuffer(a.frame.tobytes(), np.uint8)
         yb = np.frombuffer(b.frame.tobytes(), np.uint8)

@@ -2,7 +2,7 @@
 
 Each generator returns (annexb_bytes, info dict). The reference decoder
 (build/oracle/dectest) defines golden YUV output for every scenario; the
-TPU decoder must match bit-exactly (reference test strategy: golden-output
+decoder must match bit-exactly (reference test strategy: golden-output
 comparison, Decoder/src/DecTestBench.c:442).
 """
 
